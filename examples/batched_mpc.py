@@ -1,6 +1,6 @@
 """Batched MPC: thousands of double-pendulum instances, sharded over the mesh.
 
-Greenfield TPU workload (BASELINE.json config 4, no reference counterpart):
+Greenfield workload (BASELINE.json config 4, no reference counterpart):
 vmap the full closed-loop MPC over a batch of initial states and shard the
 batch axis across all available devices.  Reports solves/sec throughput.
 """
@@ -8,7 +8,6 @@ batch axis across all available devices.  Reports solves/sec throughput.
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 from _smoke import sm  # noqa: E402
-import os
 
 import jax
 import jax.numpy as jnp
@@ -47,5 +46,7 @@ def main(B: int = 512):
 
 
 if __name__ == "__main__":
+    from ilqr_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()
-    os._exit(0)

@@ -71,8 +71,10 @@ def underactuated(out):
 
 
 if __name__ == "__main__":
+    from ilqr_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     out = os.path.join(os.path.dirname(__file__), "out")
     os.makedirs(out, exist_ok=True)
     fully_actuated(out)
     underactuated(out)
-    os._exit(0)

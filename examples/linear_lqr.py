@@ -38,5 +38,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from ilqr_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()
-    os._exit(0)

@@ -1,10 +1,11 @@
-"""Long-horizon stretch workload: 100k-step cartpole iLQR with the fused
-Pallas parallel-scan Riccati (BASELINE.json config 5).
+"""Long-horizon stretch workload: 100k-step cartpole iLQR with the
+associative-scan parallel Riccati (BASELINE.json config 5).
 
 No reference counterpart — the reference's sequential scans make a 100k-step
 backward pass latency-bound (O(N) dependent steps); here the backward pass is
-the O(log N)-depth Pallas kernel and the per-iteration cost is dominated by
-the (embarrassingly parallel) linearization and the exact rollouts.
+the O(log N)-depth associative scan ('pscan') and the per-iteration cost is
+dominated by the (embarrassingly parallel) linearization and the exact
+rollouts.
 """
 
 import os as _os, sys as _sys
@@ -42,14 +43,14 @@ def main(N: int = 100_000):
     exp = warmup(lin, X, U0)
     t_lin, _ = timed(lin, X, U0, reps=3)
 
-    from ilqr_tpu.ops.pallas_riccati import backward_pass_pallas_fused
+    from ilqr_tpu.ops.parallel_riccati import backward_pass_associative
 
-    bp = jax.jit(lambda e: backward_pass_pallas_fused(e, 0.0))
+    bp = jax.jit(lambda e: backward_pass_associative(e, 0.0))
     warmup(bp, exp)
     t_bp, _ = timed(bp, exp, reps=5)
 
     print(f"N={N}: rollout={t_roll * 1e3:.1f}ms linearize={t_lin * 1e3:.1f}ms "
-          f"fused-pallas-backward={t_bp * 1e3:.1f}ms "
+          f"pscan-backward={t_bp * 1e3:.1f}ms "
           f"({N / t_bp / 1e6:.2f}M timesteps/s)")
 
     # Parallel-in-time initial rollout (Newton sweeps + affine prefix scan).
@@ -63,9 +64,9 @@ def main(N: int = 100_000):
           f"(certified defect {float(defect):.1e})")
 
     # A few full iLQR iterations end-to-end.  Every stage parallel-in-time:
-    # defect initial rollout, fused Pallas backward, Pallas-affine defect
-    # line search (exact sequential fallback guards uncertified candidates).
-    cfg = it.IlqrConfig(maxiter=sm(10, 2), tol=1e-6, backward="auto",
+    # defect initial rollout, associative-scan backward, defect line search
+    # (exact sequential fallback guards uncertified candidates).
+    cfg = it.IlqrConfig(maxiter=sm(10, 2), tol=1e-6, backward="pscan",
                         adaptive_reg=True, init_rollout="defect",
                         rollout="defect")
     solve = jax.jit(lambda x, U: it.solve(sys_, x, U, cfg))
@@ -74,7 +75,7 @@ def main(N: int = 100_000):
     print(f"10-iteration solve (all stages parallel-in-time): {t_solve:.2f}s  "
           f"cost={float(sol.cost):.4f} iters={int(sol.iterations)}")
 
-    cfg_seq = it.IlqrConfig(maxiter=sm(10, 2), tol=1e-6, backward="auto",
+    cfg_seq = it.IlqrConfig(maxiter=sm(10, 2), tol=1e-6, backward="pscan",
                             adaptive_reg=True, init_rollout="defect")
     solve_seq = jax.jit(lambda x, U: it.solve(sys_, x, U, cfg_seq))
     warmup(solve_seq, x0, U0)
@@ -88,10 +89,10 @@ def main(N: int = 100_000):
     # way to a converged trajectory by a wide margin (ilqr_tpu.shooting).
     from ilqr_tpu.shooting import MsConfig, solve_ms
 
-    cfg_ms = it.IlqrConfig(maxiter=sm(30, 2), tol=1e-6, backward="pallas",
+    cfg_ms = it.IlqrConfig(maxiter=sm(30, 2), tol=1e-6, backward="pscan",
                            init_rollout="defect")
     ms = jax.jit(lambda x, U: solve_ms(sys_, x, U, config=cfg_ms,
-                                       ms=MsConfig(update_engine="auto")))
+                                       ms=MsConfig(update_engine="xla")))
     warmup(ms, x0, U0)
     t_ms, sol_ms = timed(ms, x0, U0, reps=1)
     print(f"multiple-shooting solve (all stages O(log N)): {t_ms:.2f}s  "
@@ -100,5 +101,7 @@ def main(N: int = 100_000):
 
 
 if __name__ == "__main__":
+    from ilqr_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main(int(os.environ.get("N_HORIZON", sm(100_000, 512))))
-    os._exit(0)

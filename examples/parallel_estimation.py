@@ -63,5 +63,7 @@ def main(N: int = 100_000):
 
 
 if __name__ == "__main__":
+    from ilqr_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main(int(os.environ.get("N_HORIZON", sm(100_000, 512))))
-    os._exit(0)

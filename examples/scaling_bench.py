@@ -2,11 +2,11 @@
 "1-chip → N-host scaling efficiency on a 10k-step horizon, target ≥80%").
 
 Measures the horizon-sharded Riccati backward pass across mesh sizes
-{1, 2, 4, …, n_devices}.  On real multi-chip TPU hardware this reports true
-scaling efficiency; on a single host it can be run against the virtual CPU
-device mesh (set ILQR_TPU_FORCE_CPU=1 XLA_FLAGS=--xla_force_host_platform_
-device_count=8) to validate the harness and the communication structure —
-virtual-device timings share one socket, so efficiency numbers there are not
+{1, 2, 4, …, n_devices}.  On a multi-GPU host this reports true scaling
+efficiency; it can also be run against the virtual CPU device mesh (set
+ILQR_TPU_FORCE_CPU=1 XLA_FLAGS=--xla_force_host_platform_device_count=8) to
+validate the harness and the communication structure — virtual-device
+timings share one socket, so efficiency numbers there are not
 hardware-meaningful.
 """
 
@@ -87,5 +87,7 @@ def main(N: int = 10_240):
 
 
 if __name__ == "__main__":
+    from ilqr_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main(int(os.environ.get("N_HORIZON", sm(10_240, 256))))
-    os._exit(0)

@@ -1,14 +1,14 @@
-"""ilqr_tpu — a TPU-native trajectory-optimization (iLQR/DDP) framework.
+"""ilqr_tpu — a trajectory-optimization (iLQR/DDP) framework in JAX.
 
 Functional, pytree-based redesign of
 MohamedAbou-Taleb/Iterative-Linear-Quadratic-Regulator: pure-function systems,
 a fully on-device solver loop, associative-scan parallel Riccati, batched MPC
-over device meshes, and horizon sharding across chips.
+over device meshes, and horizon sharding across devices.
 """
-# NOTE: solver/ops entry points trace under f32 matmul accumulation via the
-# `f32_matmuls` decorator (see models/base.py) — TPU's default bf16 matmul
-# accumulation makes long-horizon Riccati recursions diverge.  No global JAX
-# config is mutated on import.
+# NOTE: solver/ops entry points trace under full-f32 matmul precision via the
+# `f32_matmuls` decorator (see models/base.py) — reduced-precision (TF32)
+# matmuls cost the long-horizon Riccati recursions their accuracy.  No
+# global JAX config is mutated on import.
 from ilqr_tpu.models.base import System, INTEGRATORS
 from ilqr_tpu.models.pendulum import make_pendulum
 from ilqr_tpu.models.double_pendulum import make_double_pendulum

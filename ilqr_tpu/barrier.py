@@ -21,11 +21,11 @@ unconstrained iLQR solve.
 
 Why this exists next to the augmented-Lagrangian solver (`constrained.py`)
 and boxQP (`ops/boxqp.py`): the barrier penalty is C², so the inner problem
-stays a *plain* iLQR problem.  Every backward-pass backend — sequential scan,
-associative O(log N) scan, fused Pallas kernel — and the parallel-in-time
-defect line search compose unchanged (boxQP forces the sequential backward;
-AL's Gauss-Newton penalty is only C⁰ in its curvature mask).  On TPU that
-means constrained solving at long horizons keeps the O(log N) critical path.
+stays a *plain* iLQR problem.  Both backward-pass backends — sequential
+scan, associative O(log N) scan — and the parallel-in-time defect line
+search compose unchanged (AL's Gauss-Newton penalty is only C⁰ in its
+curvature mask).  So constrained solving at long horizons can keep the
+O(log N) critical path.
 
 Both loops run inside one jitted program: the outer μ-schedule is a
 `lax.scan` (fixed trip count, warm-started controls), the inner solve a
@@ -250,7 +250,7 @@ def solve_barrier(
     Pure; safe to jit/vmap/shard.  Inequality constraints only — route
     equality constraints to `solve_constrained` (a log-barrier has no
     interior for h = 0).  Because the inner problems are smooth, `config`
-    may select ANY backward backend (`backward='pscan'`, `'pallas'`, …) and
+    may select either backward backend (`backward='scan'|'pscan'`) and
     the defect-correction parallel line search.
     """
     if U_init.ndim != 2 or U_init.shape[1] != system.n_u:

@@ -32,7 +32,7 @@ are evaluated by JAX autodiff as vmapped PER-STEP blocks (exact Lagrangian
 Hessian, including constraint curvature), but the Newton algebra runs on
 the HOST in float64 — scipy sparse LU (SuperLU) on the block-tridiagonal
 KKT matrix, numpy assembly, Python line-search loop.  No Riccati recursion,
-no smallmat closed forms, no Pallas kernels, no XLA linear solves, no
+no smallmat closed forms, no XLA linear solves, no
 lax.while_loop.  The structured assembly is also what makes the oracle
 scale: the dense-z ``jax.hessian`` of the previous revision compiled an
 O((N·n)²)-sized XLA program (which crashed XLA:CPU codegen for the DP

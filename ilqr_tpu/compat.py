@@ -4,7 +4,7 @@ Users of the reference package (`iLQR` classes, (dim, time) array layout,
 13-function derivative surface) can switch to ilqr_tpu with minimal edits:
 this module exposes the same names, constructor signatures and layouts
 (`/root/reference/python/class_files/iLQR_class.py:18-38`,
-`system_base.py:25-251`) on top of the functional TPU core.  New code should
+`system_base.py:25-251`) on top of the functional core.  New code should
 use the functional API (`ilqr_tpu.solve` etc.) directly — the facade costs a
 device sync per property access but solves with the same single fused device
 program.
@@ -153,9 +153,7 @@ class iLQR:
         # Reference-shaped jitted pass handles (used by driver warm-up code).
         from ilqr_tpu.ops.linearize import linearize_trajectory
         from ilqr_tpu.ops.riccati import backward_pass as _bp
-        # Wide variant: a single-instance (n_x,)-vector scan body lands on
-        # the TPU scalar core (~18x slower); width-2 batch gets the VPU.
-        from ilqr_tpu.ops.rollout import closed_loop_rollout_wide as _fp
+        from ilqr_tpu.ops.rollout import closed_loop_rollout as _fp
 
         def backward_pass(X_nom, U_nom):
             exp = linearize_trajectory(self._sys, X_nom.T, U_nom.T)
@@ -169,10 +167,8 @@ class iLQR:
 
         self.backward_pass = jax.jit(backward_pass)
         self.forward_pass = jax.jit(forward_pass)
-        from ilqr_tpu.ops.rollout import rollout_wide as _ro
-
         self._initial_cost = jax.jit(
-            lambda x0, U0: _ro(self._sys, x0, U0)[1])
+            lambda x0, U0: _rollout(self._sys, x0, U0)[1])
 
     def optimize_trajectory(self):
         """Run the solve; returns (X, U, cost) in (dim, time) layout.

@@ -14,10 +14,10 @@ multipliers/penalty, an inner iLQR minimizes the augmented cost.  Both loops
 are `lax.while_loop`s inside one jitted program — zero host round-trips — so
 the constrained solver vmaps/shards exactly like the unconstrained one.
 
-TPU-native structure: the AL penalty's gradient/Gauss-Newton terms are added
+Structure: the AL penalty's gradient/Gauss-Newton terms are added
 to the *trajectory-wide* `TrajectoryExpansion` (one vmapped constraint
 linearization per iteration, batched over time), so every backward-pass
-backend — sequential scan, associative scan, fused Pallas — composes
+backend — sequential scan, associative scan — composes
 unchanged.  Line-search candidates are re-scored under the exact augmented
 cost as one vmapped batch.
 
@@ -474,7 +474,7 @@ def solve_constrained_ms(
       together), where `solve_constrained` re-rolls out from scratch;
     * every inner stage is parallel-in-time (defect-aware Riccati on any
       backend + one multi-candidate affine prefix scan per iteration), so it
-      composes with ``config.backward='pscan'/'pallas'`` — the O(log N)
+      composes with ``config.backward='pscan'`` — the O(log N)
       critical path survives constrained solving, like `ilqr_tpu.barrier`
       but for general equality+inequality constraints.
     """
@@ -497,12 +497,11 @@ def solve_constrained_ms(
                          "instead")
 
     if X_init is None:
-        if config.resolved_init_rollout(N) == "defect":
+        if config.resolved_init_rollout() == "defect":
             from ilqr_tpu.ops.parallel_rollout import open_loop_defect_rollout
 
             X_p, _, _ = open_loop_defect_rollout(
-                system, x0, U_init,
-                iters=config.defect_iters, engine=config.defect_engine)
+                system, x0, U_init, iters=config.defect_iters)
             X_init = jnp.where(
                 jnp.all(jnp.isfinite(X_p)), X_p,
                 jnp.broadcast_to(x0, (N + 1,) + x0.shape))

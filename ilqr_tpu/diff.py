@@ -18,7 +18,7 @@ The VJP therefore needs one linear solve ``H z = ḡ_U`` per backward pass.
 H is (N·n_u)² but never materialized: conjugate gradients with
 Hessian-vector products (forward-over-reverse through the rollout, O(N) per
 product and scan-parallel over time) keep the whole backward pass matrix-free
-and TPU-friendly.  The envelope theorem falls out for free: differentiating
+and device-friendly.  The envelope theorem falls out for free: differentiating
 only the converged *cost* gives ḡ_U = ∇_U J = 0, so z = 0 and the gradient
 reduces to the direct ∂J/∂θ term.
 
@@ -35,7 +35,7 @@ differentiate its final fixed-(μ, δ) subproblem instead).
 No reference counterpart — the reference solver is a host-side Python loop
 (`/root/reference/python/class_files/iLQR_class.py:250-313`) with no notion
 of differentiating through a solve.  Enables gradient-based inverse optimal
-control, cost-weight auto-tuning, and system identification on TPU (see
+control, cost-weight auto-tuning, and system identification on device (see
 `examples/inverse_optimal_control.py`).
 """
 from __future__ import annotations

@@ -152,7 +152,7 @@ def simulate_output_feedback(
 # Derivative-free: propagates 2n+1 sigma points through the full nonlinear
 # dynamics/observation instead of linearizing — exact to 3rd-order moments,
 # and usable when obs_fn is non-differentiable.  Sigma propagation is one
-# vmapped batch, so the (2n+1)-point cloud maps onto the VPU/MXU as a single
+# vmapped batch, so the (2n+1)-point cloud maps onto the device as a single
 # small batched op rather than 2n+1 scalar chains.
 # ---------------------------------------------------------------------------
 

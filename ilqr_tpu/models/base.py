@@ -1,6 +1,6 @@
 """System abstraction: pure-function dynamics + costs as a pytree dataclass.
 
-TPU-native redesign of the reference's stateful OO base class
+Functional redesign of the reference's stateful OO base class
 (`/root/reference/python/class_files/systems/system_base.py:9-275`): instead of a
 Python ABC that manufactures 13 jitted bound methods, a `System` here is a frozen
 pytree holding a parameter pytree and three *pure* functions
@@ -27,13 +27,15 @@ import jax.numpy as jnp
 
 
 def f32_matmuls(fn: Callable) -> Callable:
-    """Trace ``fn`` under f32 matmul accumulation.
+    """Trace ``fn`` under full-f32 ("highest") matmul precision.
 
-    TPU matmuls default to bf16 accumulation, under which long-horizon
-    Riccati recursions diverge to NaN.  Scoping the precision to this
-    library's entry points (instead of mutating global JAX config at import)
-    leaves unrelated user code untouched; control-sized matmuls cost nothing
-    in f32.
+    On an NVIDIA GPU, XLA's default precision may run f32 matrix products
+    in TF32 (a 10-bit mantissa, about three decimal digits), under which
+    long-horizon Riccati recursions and the f64-oracle parity gates lose
+    accuracy.  Scoping the precision to this library's entry points (instead
+    of mutating global JAX config at import) leaves unrelated user code
+    untouched; control-sized matmuls are too small for the tensor cores to
+    matter.
     """
 
     @functools.wraps(fn)
@@ -72,7 +74,7 @@ class System:
     integrator: str = dataclasses.field(default="rk4", metadata=dict(static=True))
     # Newton settings for the implicit backward-Euler integrator.  A *fixed*
     # iteration count (vs the reference's tolerance-gated `lax.while_loop`,
-    # `system_base.py:105-139`) keeps the step vmap/shard/Pallas-friendly.
+    # `system_base.py:105-139`) keeps the step vmap/shard-friendly.
     newton_iters: int = dataclasses.field(default=10, metadata=dict(static=True))
 
     def replace(self, **kw) -> "System":
@@ -101,13 +103,12 @@ def quadratic_cost_params(x_target, Q, R, Q_f) -> dict:
 
 
 # Trace-time switch for the component-unrolled small-matrix forms below.
-# Inside the batched Pallas rollout kernels (ops/pallas_batched) the model
-# cost/dynamics are traced through a double-vmap whose batch-axis placement
-# makes Mosaic reject the reduction ops of the vectorized forms
-# ("reductions over both trailing dimensions...") — there the unrolled
-# scalar form is required.  Everywhere ELSE the vectorized reduce is
-# faster: the unrolled n² terms lower to n² separate ops per sequential
-# scan step, measured +35% on the N=500 DP full solve.
+# The batched rollouts under vmap(solve) (the custom_vmap rules in
+# ops/rollout.py) trace the model under it: every intermediate then keeps
+# the batch shape instead of a (B, n, n) broadcast product.  Single-instance
+# traces keep the vectorized reduce: the unrolled n² terms lower to n²
+# separate ops per sequential scan step.  Neither choice has been timed on
+# the GPU yet.
 import contextlib as _contextlib
 
 _UNROLLED_SMALLMATH = False
@@ -115,9 +116,9 @@ _UNROLLED_SMALLMATH = False
 
 @_contextlib.contextmanager
 def unrolled_smallmath():
-    """Trace model costs/dynamics with component-unrolled quad_form/matvec
-    (Mosaic-safe under any vmap batching).  Used while tracing Pallas
-    kernel bodies; a pure trace-time switch, not a runtime flag."""
+    """Trace model costs/dynamics with component-unrolled quad_form/matvec.
+    Used by the batched rollout rules; a pure trace-time switch, not a
+    runtime flag."""
     global _UNROLLED_SMALLMATH
     prev = _UNROLLED_SMALLMATH
     _UNROLLED_SMALLMATH = True
@@ -128,9 +129,8 @@ def unrolled_smallmath():
 
 
 def quad_form(v, M):
-    """v'Mv via broadcasting (no dot_general — tiny batched dots hit a slow
-    TPU path, see ops/smallmat.py); component-unrolled under
-    `unrolled_smallmath()` (see above)."""
+    """v'Mv via broadcasting (no dot_general for the tiny contraction);
+    component-unrolled under `unrolled_smallmath()` (see above)."""
     n = M.shape[-1]
     if _UNROLLED_SMALLMATH:
         return sum(v[..., i] * M[..., i, j] * v[..., j]

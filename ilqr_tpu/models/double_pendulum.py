@@ -41,8 +41,7 @@ def f_cont(params, x, u):
     m22 = th2 + m2 * lc2**2
 
     # Generalized forces h = S τ − C(q,q̇)q̇ − G(q) − D q̇, componentwise
-    # (scalar algebra only — this function is traced into Pallas rollout
-    # kernels, where Mosaic rejects batched dot_general ops).
+    # (scalar algebra only — no tiny batched dot_general ops under vmap).
     hc = m2 * l1 * lc2 * s2
     n_u = u.shape[-1] if u.ndim else 1
     tau1 = sum(p["S"][0, j] * u[..., j] for j in range(n_u))

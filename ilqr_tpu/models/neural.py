@@ -11,7 +11,7 @@ rollout — then hand the learned ``System`` straight to ``ilqr_tpu.solve`` /
 (base + MLP weights) live in the pytree leaf ``system.params``, so jit /
 vmap / sharding / implicit differentiation all compose untouched.
 
-Design notes (TPU/JAX idiom):
+Design notes (JAX idiom):
 * ``System.f_cont`` must stay a module-level function (it is static metadata
   participating in jit cache keys, `models/base.py:57-60`), so the base
   system's callables are threaded through ``params`` as

@@ -13,8 +13,8 @@ Controls u = [F1, F2, F3, F4]: rotor thrusts in a "+" configuration
     (rotors 1/3 on the body-x arm, 2/4 on body-y; 1 and 3 spin opposite
     2 and 4, so differential thrust yaws via rotor drag k_m).
 
-Dynamics (rigid body, diagonal inertia, all scalar arithmetic — tiny
-dot_generals hit a slow TPU path, see ops/smallmat.py):
+Dynamics (rigid body, diagonal inertia, all scalar arithmetic — no tiny
+dot_generals, see ops/smallmat.py):
     ṗ = v
     Θ̇ = W(φ, θ) ω                       (Euler-rate kinematics)
     v̇ = (T/m)·R(Θ)e₃ − g e₃            (thrust along body z)
@@ -155,9 +155,8 @@ def make_quadrotor3d_rotor(
     integrator: str = "rk4",
 ) -> System:
     """n_x = 16 manipulator-class workload: quadrotor3d + 4 rotor-lag
-    states.  Exists to exercise (and test) the fused Pallas backward past
-    the former n_x ≤ 12 cap (VERDICT r3 weak #6) at a physically meaningful
-    dimension — x_target/Q/Q_f are 16-dimensional (target rotor thrusts =
+    states.  Exercises the n_x = 16 Riccati algebra (the largest closed-form
+    QR inverse in ops/smallmat.py) at a physically meaningful dimension — x_target/Q/Q_f are 16-dimensional (target rotor thrusts =
     hover shares, typically)."""
     params = quadratic_cost_params(x_target, Q, R, Q_f)
     params.update(

@@ -14,12 +14,12 @@ derivatives); for `integrator='discrete'`, where f_cont IS the next-state
 map, the clock is set to k+1 directly.  The quadratic tracking cost gathers
 `X_ref[k]`, `U_ref[k]`
 on-device.  Because the result IS a `System`, the whole stack composes
-unchanged: solve / MPC / vmapped batches / constrained solves / Pallas
+unchanged: solve / MPC / vmapped batches / constrained solves / parallel
 backward passes.  In receding-horizon MPC the clock in the plant state
 advances every sim step, so the solver's reference window shifts
 automatically — no host-side bookkeeping.
 
-TPU notes: the gather `X_ref[k]` is a dynamic-slice of an (N+1, n_x) array —
+Device notes: the gather `X_ref[k]` is a dynamic-slice of an (N+1, n_x) array —
 vmappable and cheap; the clock is f32 (exact integers to 2^24, far beyond any
 horizon here); index gradients are cut with `stop_gradient` + int cast so the
 cost expansion sees the reference as locally constant (piecewise-constant in

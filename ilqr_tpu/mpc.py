@@ -7,7 +7,7 @@ budget, apply only the first control, step a (possibly different) plant model,
 and shift-and-hold the solution as the next warm start
 (`U_guess = concat(U[1:], U[-1:])`, `run_iLQR_MPC.py:137`).
 
-TPU-native differences:
+Differences from the reference:
 * the entire simulation loop is one `lax.scan` — zero host round-trips for an
   N_sim-step closed-loop run (the reference re-enters Python per step);
 * solver/plant model mismatch is first-class: two `System` pytrees (the
@@ -31,48 +31,13 @@ from ilqr_tpu.ops.integrators import step
 from ilqr_tpu.solver import IlqrConfig, solve
 
 
-def _mpc_auto_config(config: IlqrConfig, n_x: int) -> IlqrConfig:
-    """Resolve 'auto' engine choices for SINGLE-INSTANCE MPC loops.
-
-    `solve`'s own 'auto' thresholds are calibrated for standalone dispatch,
-    where each defect sweep pays a kernel-launch floor and the sequential
-    scan wins below N≈8k.  Inside the jitted MPC scan there is no per-op
-    dispatch floor, so the O(log N)-depth engines win from very short
-    horizons — measured on v5e (pendulum, H=200, n_sim=400): full loop
-    0.59 ms/step and RTI 0.32 ms/step with pscan backward + defect rollouts
-    vs 8.0/7.2 ms/step with the sequential engines, identical closed-loop
-    cost.  Batched MPC (`run_mpc_batched`) keeps the sequential engines:
-    vmap already fills the chip and the defect sweeps' extra FLOPs (and
-    their cond→select lowering under vmap) only hurt there.
-    """
-    if jax.default_backend() != "tpu":
-        return config
-    kw = {}
-    if config.rollout == "auto" and config.u_min is None:
-        kw["rollout"] = "defect"
-    if config.init_rollout == "auto":
-        kw["init_rollout"] = "defect"
-    if (config.backward == "auto" and not config.ddp
-            and config.noise is None and config.u_min is None):
-        # pscan is dimension-generic (no Pallas VMEM cap applies here).
-        kw["backward"] = "pscan"
-    if config.defect_engine == "auto":
-        # XLA scans fuse into the surrounding program; at MPC-scale horizons
-        # a Pallas kernel call per sweep only adds launch overhead.
-        kw["defect_engine"] = "xla"
-    return dataclasses.replace(config, **kw) if kw else config
-
-
 # Steps to keep the parallel line search disabled after a certification
 # failure before re-probing it (see run_mpc's cooldown carry).  Default 0 =
-# re-probe every solve: measured on v5e (pendulum H=200: 10% of solves fail
-# certification, clustered in the transient; cartpole swing-up: 20%,
-# interspersed), cross-step disabling LOSES on both — no-carry 0.62/1.24
-# ms/step vs cooldown=2 0.76/1.32 and permanent latch 1.65/— — because the
-# in-solve latch already bounds the fallback cost to once per solve while a
-# carried latch forces the slower exact line search onto healthy solves
-# after every transient failure.  Set >0 only for workloads where
-# certification failures are persistent runs, not interspersed.
+# re-probe every solve: the in-solve latch already bounds the fallback cost
+# to once per solve, while a carried latch forces the slower exact line
+# search onto healthy solves after every transient failure.  Set >0 only
+# for workloads where certification failures are persistent runs, not
+# interspersed.
 _LATCH_COOLDOWN = 0
 
 
@@ -94,14 +59,8 @@ def run_mpc(
     U_init: jnp.ndarray,
     n_sim: int,
     config: IlqrConfig = IlqrConfig(maxiter=10),
-    auto_parallel: bool = True,
 ) -> MpcResult:
-    """Closed-loop MPC simulation. U_init: (N_horizon, n_u) first warm start.
-
-    ``auto_parallel`` (default on) resolves 'auto' engine choices to the
-    parallel-in-time inner chains on TPU — see `_mpc_auto_config`."""
-    if auto_parallel:
-        config = _mpc_auto_config(config, solver_system.n_x)
+    """Closed-loop MPC simulation. U_init: (N_horizon, n_u) first warm start."""
 
     def mpc_step(carry, _):
         x, U_warm, cooldown = carry
@@ -115,10 +74,6 @@ def run_mpc(
         # Certification-failure cooldown in the scan carry: a solve whose
         # parallel line search tripped to the exact fallback disables the
         # parallel path for the next _LATCH_COOLDOWN steps, then re-probes.
-        # (A permanent carry-latch measured 2.7x worse on the pendulum MPC
-        # loop: one transient failure pessimized every later step; no carry
-        # at all re-pays phase1+phase2+fallback per step under persistent
-        # drift.)
         cooldown_next = jnp.where(
             sol.defect_latch, jnp.zeros_like(cooldown),
             jnp.where(cooldown == 0, _LATCH_COOLDOWN, cooldown - 1))
@@ -142,7 +97,6 @@ def run_mpc_rti(
     n_sim: int,
     config: IlqrConfig = IlqrConfig(maxiter=10),
     resolve_every: int = 1,
-    auto_parallel: bool = True,
 ) -> MpcResult:
     """Real-time-iteration MPC: re-solve every ``resolve_every`` steps and
     track the current plan with its own time-varying gains in between
@@ -157,8 +111,6 @@ def run_mpc_rti(
     if n_sim % resolve_every != 0:
         raise ValueError(
             f"n_sim={n_sim} not divisible by resolve_every={resolve_every}")
-    if auto_parallel:
-        config = _mpc_auto_config(config, solver_system.n_x)
     n_outer = n_sim // resolve_every
     limits = config.limit_arrays(U_init.shape[-1], U_init.dtype)
 
@@ -214,15 +166,9 @@ def run_mpc_batched(
     Shard the batch axis over a mesh with
     `ilqr_tpu.parallel.batch.shard_batch` before calling for multi-chip runs.
     """
-    # Pin 'auto' line search to the vmapped scan: under vmap the chunked
-    # engine's certification cond lowers to a select that runs BOTH branches
-    # per instance, and vmap already fills the chip (auto_parallel=False
-    # keeps the other engines sequential for the same reason).
-    if config.rollout == "auto":
-        config = dataclasses.replace(config, rollout="scan")
     return jax.vmap(
         lambda x0: run_mpc(solver_system, plant_system, x0, U_init, n_sim,
-                           config, auto_parallel=False)
+                           config)
     )(x0_batch)
 
 
@@ -235,7 +181,6 @@ def run_mpc_ms(
     n_sim: int,
     config: IlqrConfig = IlqrConfig(maxiter=10),
     ms=None,
-    auto_parallel: bool = True,
 ) -> MpcResult:
     """Closed-loop MPC on the multiple-shooting solver (`ilqr_tpu.shooting`).
 
@@ -253,30 +198,18 @@ def run_mpc_ms(
     counterpart (the reference MPC shifts controls only,
     `run_iLQR_MPC.py:137`).
 
-    With ``config.maxiter=1`` this is the fastest RTI variant in the
-    framework: one GNMS iteration per step has NO nonlinear rollout anywhere
-    (the shifted-plan mismatch is a defect, the update pass is affine), so
-    the whole step is vmapped evaluations plus two O(log H) scans — measured
-    on v5e (pendulum, H=200, backward_euler solver / midpoint plant):
-    0.188 ms/step vs 0.269 for `run_mpc_rti` and 0.602 for the full
-    maxiter=10 `run_mpc`, identical closed-loop cost (24.089).
-
-    ``auto_parallel`` (default on) resolves 'auto' engine choices the same
-    way `run_mpc` does (pscan backward, defect init) and additionally pins
-    the MS update engine to the XLA associative scan — inside the MPC scan a
-    Pallas kernel call per update only adds launch overhead, and the
-    vmapped sequential update measured 2.3× slower (0.425 ms/step).
+    With ``config.maxiter=1`` this is a real-time iteration: one GNMS
+    iteration per step has NO nonlinear rollout anywhere (the shifted-plan
+    mismatch is a defect, the update pass is affine), so with
+    ``backward='pscan'`` and ``MsConfig(update_engine='xla')`` the whole
+    step is vmapped evaluations plus two O(log H) scans.
     """
-    from ilqr_tpu.ops.rollout import rollout_wide as _rollout
+    from ilqr_tpu.ops.rollout import rollout
     from ilqr_tpu.shooting import MsConfig, solve_ms
 
     if ms is None:
         ms = MsConfig()
-    if auto_parallel:
-        config = _mpc_auto_config(config, solver_system.n_x)
-        if ms.update_engine == "auto" and jax.default_backend() == "tpu":
-            ms = dataclasses.replace(ms, update_engine="xla")
-    X_init, _ = _rollout(solver_system, x0, U_init)
+    X_init, _ = rollout(solver_system, x0, U_init)
 
     def mpc_step(carry, _):
         x, U_warm, X_warm = carry

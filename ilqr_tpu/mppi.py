@@ -7,10 +7,10 @@ trajectory costs (Williams et al., "Information Theoretic MPC", ICRA 2017):
 
     U ← Σ_s w_s (U + E_s),    w_s ∝ exp(−(J_s − min_s J_s) / λ).
 
-This is the single best-matched algorithm in the control toolbox for TPU
-hardware: the hot path is S independent rollouts — one ``vmap`` over the
+This is the best-matched algorithm in the control toolbox for a wide
+accelerator: the hot path is S independent rollouts — one ``vmap`` over the
 sample axis, embarrassingly parallel, no backward pass, no small-matrix
-factorizations — so throughput scales directly with chip FLOPs and the
+factorizations — so throughput scales directly with device FLOPs and the
 sample axis shards over a device mesh like any batch axis
 (`ilqr_tpu.parallel`).  Useful where iLQR struggles: non-smooth or
 contact-rich dynamics, costs with flat/cliff regions, and as a global

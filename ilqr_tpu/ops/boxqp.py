@@ -9,7 +9,7 @@ backward-pass step solve
     min_d  ½ d'H d + g'd     s.t.  lo ≤ d ≤ hi
 
 with a projected-Newton active-set iteration, and zero the feedback rows of
-clamped controls.  TPU-shaped: a FIXED iteration count (no data-dependent
+clamped controls.  Accelerator-shaped: a FIXED iteration count (no data-dependent
 while_loop — vmaps/shards/scans cleanly), and the free-set subsystem is solved
 by masking the clamped rows/columns to identity instead of gathering a
 variable-size submatrix (static shapes; `solve_small` keeps n_u ≤ 4 solves on

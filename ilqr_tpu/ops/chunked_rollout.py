@@ -15,7 +15,7 @@ module trades a little depth for a much larger contraction region:
       2. boundary defects d_c = end_c − s_{c+1};
       3. Newton-correct the boundaries through the linearized closed-loop
          transition: δ_{c+1} = Φ_c δ_c + d_c with Φ_c = Π_{k∈chunk c} A_k —
-         an O(C) affine prefix scan (`ops/pallas_affine`).
+         an O(C) affine prefix scan (`affine_prefix_scan_multi`).
 
 Within-chunk nonlinearity is propagated exactly, so only the C−1 boundary
 corrections rely on the linearization — the scheme is a Newton method on the
@@ -40,8 +40,10 @@ import jax.numpy as jnp
 
 from ilqr_tpu.models.base import System, f32_matmuls
 from ilqr_tpu.ops.integrators import step
-from ilqr_tpu.ops.parallel_rollout import _guarded_max_defect
-from ilqr_tpu.ops.rollout import scan_unroll
+from ilqr_tpu.ops.parallel_rollout import (
+    _guarded_max_defect,
+    affine_prefix_scan_multi,
+)
 
 
 def auto_chunk_len(N: int) -> int:
@@ -78,7 +80,7 @@ def chunk_transition_products(A: jnp.ndarray, L: int) -> jnp.ndarray:
         return A_l @ P, None
 
     P0 = jnp.broadcast_to(jnp.eye(n, dtype=A.dtype), (C, n, n))
-    Phi, _ = jax.lax.scan(body, P0, A_c, unroll=scan_unroll(8))
+    Phi, _ = jax.lax.scan(body, P0, A_c)
     return Phi
 
 
@@ -108,8 +110,6 @@ def linesearch_chunked_rollouts(
     corrections (each correction re-rolls all chunks); the loop exits early
     once every candidate's defect is below ``exit_tol``.
     """
-    from ilqr_tpu.ops.pallas_affine import affine_prefix_scan_multi
-
     N, n_u = U_old.shape
     n_x = x0.shape[0]
     n_alpha = alphas.shape[0]
@@ -162,7 +162,7 @@ def linesearch_chunked_rollouts(
 
         (e, acc), (Xs, Us) = jax.lax.scan(
             body, (s, jnp.zeros((n_alpha, C), s.dtype)),
-            (Xo_c, Uo_c, uf_c, K_c, mask_c), unroll=scan_unroll())
+            (Xo_c, Uo_c, uf_c, K_c, mask_c))
         costs = jnp.sum(acc, axis=1) + jax.vmap(
             lambda xN: system.terminal_cost(system.params, xN))(e[:, -1])
         defects = _guarded_max_defect(e[:, :-1] - s[:, 1:], (1, 2)) \
@@ -184,8 +184,8 @@ def linesearch_chunked_rollouts(
         k, s, Xs, Us, e, _, _ = c
         d = e[:, :-1] - s[:, 1:]                      # (A, C-1, n_x)
         deltas = affine_prefix_scan_multi(
-            Phi[:-1], d, jnp.zeros((n_alpha, n_x), d.dtype),
-            engine="xla")[:, 1:]                      # (A, C-1, n_x)
+            Phi[:-1], d, jnp.zeros((n_alpha, n_x), d.dtype)
+        )[:, 1:]                                      # (A, C-1, n_x)
         s = jnp.concatenate([s[:, :1], s[:, 1:] + deltas], axis=1)
         Xs, Us, e, costs, defects = roll(s)
         return k + 1, s, Xs, Us, e, costs, defects

@@ -5,14 +5,14 @@ Capability parity with the reference integrator set
 explicit Euler (RK1), explicit midpoint (RK2, ZOH), RK4 (ZOH), and implicit
 backward Euler.
 
-TPU-native differences from the reference:
+Differences from the reference:
 
 * The backward-Euler Newton solve uses a **fixed iteration count**
   (``system.newton_iters``) instead of a tolerance-gated ``lax.while_loop``
   (reference `system_base.py:105-139`).  Fixed trip counts keep the step
   identical across a vmapped batch (no divergent control flow), which is what
   lets the whole solver vmap over thousands of MPC instances and lower cleanly
-  to TPU.  Like the reference, it is a quasi-Newton iteration: the Jacobian
+  to an accelerator.  Like the reference, it is a quasi-Newton iteration: the Jacobian
   ``I - dt*J`` is evaluated once at the forward-Euler predictor and LU-factored
   once (`system_base.py:129-135`), then reused for every correction step.
 
@@ -66,7 +66,7 @@ def _backward_euler(f_cont, dt, newton_iters, params, x, u):
     )(x1)
     # Closed-form inverse of the tiny stale Jacobian, computed once and
     # reused every correction (replaces the reference's LU factor+solve,
-    # which hits TPU's slow pivoted-LU path).
+    # a pivoted-LU path that does not vectorize over the batch).
     Ji = inv_small(J)
 
     def body(_, x1):

@@ -19,7 +19,7 @@ The parallel form here fixes the active set instead of the recursion:
        defect form the Riccati elements already support
        (`parallel_riccati.make_elements(defects=…)`).
     2. One O(log N) suffix scan of the masked elements gives V(k+1) for all
-       k at once (Pallas kernel on TPU, `pallas_riccati.suffix_scan_pallas`).
+       k at once (`parallel_riccati.suffix_scan`).
     3. Gains + feedforward for the free components, fully vmapped.
     4. Active-set update from the FULL problem's Q-expansion at the same V
        (Bertsekas/Tassa projected-Newton rule): clamp where the clipped
@@ -28,8 +28,8 @@ The parallel form here fixes the active set instead of the recursion:
 
 On a fixed point of the active-set iteration the result satisfies the same
 KKT conditions as the sequential boxQP pass, so both drive the line-searched
-solver to the same optimum; per-sweep cost is one parallel backward
-(~2 ms at N=32k on v5e) instead of N sequential boxQPs.
+solver to the same optimum; per-sweep cost is one parallel backward instead
+of N sequential boxQPs.
 """
 from __future__ import annotations
 
@@ -89,16 +89,9 @@ def masked_expansion(
     )
 
 
-def _suffix_values(exp_m, reg, defects, engine: str):
-    """V_x, V_xx at k+1 for every k (defect-shifted), via the selected
-    suffix-scan engine."""
-    elems = make_elements(exp_m, reg, defects=defects)
-    if engine == "pallas":
-        from ilqr_tpu.ops.pallas_riccati import suffix_scan_pallas
-
-        suffix = suffix_scan_pallas(elems)
-    else:
-        suffix = suffix_scan(elems)
+def _suffix_values(exp_m, reg, defects):
+    """V_x, V_xx at k+1 for every k (defect-shifted), via one suffix scan."""
+    suffix = suffix_scan(make_elements(exp_m, reg, defects=defects))
     V_x = -suffix.eta[1:]
     V_xx = suffix.J[1:]
     V_x = V_x + (V_xx @ defects[..., None])[..., 0]
@@ -113,7 +106,6 @@ def backward_pass_limited_parallel(
     u_hi: jnp.ndarray,
     reg: jnp.ndarray | float = 0.0,
     sweeps: int = 12,
-    engine: str = "auto",
     hess=None,
     noise=None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
@@ -140,9 +132,6 @@ def backward_pass_limited_parallel(
     N, n_u = U_old.shape
     dtype = exp.l_u.dtype
     reg = jnp.asarray(reg, dtype=dtype)
-    if engine == "auto":
-        engine = "pallas" if (jax.default_backend() == "tpu"
-                              and exp.v_x.shape[-1] <= 12) else "xla"
     lo_d = jnp.broadcast_to(u_lo, (N, n_u)).astype(dtype) - U_old
     hi_d = jnp.broadcast_to(u_hi, (N, n_u)).astype(dtype) - U_old
     eps = _BOUND_EPS * (1.0 + jnp.abs(hi_d - lo_d))
@@ -186,7 +175,7 @@ def backward_pass_limited_parallel(
     def one_sweep(free, du_c, V_x, V_xx):
         e_fold = fold(V_x, V_xx) if second_order else exp
         exp_m, d = masked_expansion(e_fold, du_c, free)
-        V_x, V_xx = _suffix_values(exp_m, reg, d, engine)
+        V_x, V_xx = _suffix_values(exp_m, reg, d)
         u_ff_f, K, dVs = gains_from_value(exp_m, V_x, V_xx, reg)
         dV = jnp.sum(dVs, axis=0)
         u_ff = jnp.clip(du_c + u_ff_f, lo_d, hi_d)
@@ -231,7 +220,7 @@ def backward_pass_limited_parallel(
         # Seed the trace with the Gauss-Newton unconstrained values so the
         # first fold is meaningful.
         V0, Vxx0 = _suffix_values(
-            exp, reg, jnp.zeros((N, n_x), dtype), engine)
+            exp, reg, jnp.zeros((N, n_x), dtype))
     init = (jnp.asarray(0), jnp.asarray(0), free0, du0, V0, Vxx0,
             jnp.zeros((N, n_u), dtype),
             jnp.zeros((N, n_u, n_x), dtype),

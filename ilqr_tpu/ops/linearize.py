@@ -6,10 +6,9 @@ the sequential Riccati scan, one timestep at a time
 entire derivative surface is computed in a single vmapped evaluation over the
 whole trajectory: the linearization stage becomes embarrassingly parallel over
 time (and over problem batches), leaving only the Riccati algebra sequential.
-On TPU this turns N tiny serial AD evaluations into one large batched program
-the compiler can tile.
+This turns N tiny serial AD evaluations into one large batched program.
 
-Layout convention (TPU-native, time-major):
+Layout convention (time-major):
     X: (N+1, n_x)    U: (N, n_u)
 All stacked derivative arrays lead with the time axis.
 """
@@ -123,13 +122,10 @@ def linearize_trajectory(system: System, X: jnp.ndarray, U: jnp.ndarray) -> Traj
 
 
 # ---------------------------------------------------------------------------
-# Batched linearization: vmap(solve) profiling (round 4) showed the vmapped
-# per-instance linearize dominating the batched solve (~200 of 240 ms at
-# B=1024, N=128): the rank-4 (B, N, n, n) jacobian outputs get laid out
-# with the tiny (n, n) matrices on the tiled minor dims — 64x padding at
-# n=4 — so the (cheap) derivative arithmetic writes 64x the bytes.
-# Flattening (B, N) into ONE point axis restores the rank-3 shapes the
-# single-trajectory path gets field-major layouts for.
+# Batched linearization: under vmap(solve) the per-instance jacobians would
+# come out as rank-4 (B, N, n, n) arrays with the tiny (n, n) matrices on
+# the minor dims.  Flattening (B, N) into ONE point axis gives the batched
+# path the same rank-3 program as a single trajectory.
 # ---------------------------------------------------------------------------
 
 from jax.custom_batching import custom_vmap

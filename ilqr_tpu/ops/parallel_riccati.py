@@ -4,7 +4,7 @@ The reference's backward pass is a strictly sequential reverse scan over the
 horizon (`/root/reference/python/class_files/iLQR_class.py:122-161`) — O(N)
 depth regardless of hardware.  This module reformulates the recursion as an
 associative combination of per-step value-function elements, giving O(log N)
-depth on TPU and a natural unit for horizon sharding across chips
+depth and a natural unit for horizon sharding across devices
 (`ilqr_tpu.parallel.horizon`).
 
 Formulation (temporal parallelization of LQT, cf. Särkkä & García-Fernández,
@@ -201,7 +201,7 @@ def backward_pass_associative(
 @f32_matmuls
 def backward_pass_ddp_parallel(
     exp: TrajectoryExpansion, reg: jnp.ndarray | float = 0.0, hess=None,
-    noise=None, sweeps: int = 3, engine: str = "xla",
+    noise=None, sweeps: int = 3,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Full-DDP / iLQG backward pass in O(sweeps·log N) depth.
 
@@ -224,9 +224,6 @@ def backward_pass_ddp_parallel(
     line search guards descent regardless — inexact gains cost iterations,
     not correctness).  The default matches ``IlqrConfig.ddp_sweeps``.
 
-    ``engine='pallas'`` runs each suffix scan through the fused sublane
-    kernel (`ops/pallas_riccati.py`), 'xla' through `associative_scan`.
-
     The reference framework is Gauss-Newton-only (`iLQR_class.py:100-104`);
     this composes its missing second-order terms with the parallel-in-time
     backward that is this framework's headline.
@@ -234,15 +231,9 @@ def backward_pass_ddp_parallel(
     import dataclasses as _dc
 
     reg = jnp.asarray(reg, dtype=exp.l_u.dtype)
-    if engine == "pallas":
-        from ilqr_tpu.ops.pallas_riccati import suffix_scan_pallas
-
-        scan_fn = suffix_scan_pallas
-    else:
-        scan_fn = suffix_scan
 
     def traces(e):
-        suffix = scan_fn(make_elements(e, reg))
+        suffix = suffix_scan(make_elements(e, reg))
         return -suffix.eta[1:], suffix.J[1:]
 
     def fold(V_x_next, V_xx_next):

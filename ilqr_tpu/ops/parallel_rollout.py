@@ -53,6 +53,31 @@ def affine_prefix_scan(A: jnp.ndarray, d: jnp.ndarray, delta0: jnp.ndarray):
     return jnp.concatenate([delta0[None], deltas], axis=0)
 
 
+def _combine_multi(e1, e2):
+    """Affine-map composition with a candidate axis on q at position -2."""
+    P1, q1 = e1
+    P2, q2 = e2
+    return P2 @ P1, jnp.einsum("...ij,...aj->...ai", P2, q1) + q2
+
+
+@f32_matmuls
+def affine_prefix_scan_multi(P: jnp.ndarray, q: jnp.ndarray,
+                             delta0: jnp.ndarray) -> jnp.ndarray:
+    """Solve δ_{k+1} = P_k δ_k + q_k^{(a)} for all candidates a at once.
+
+    P: (N, n, n) transition chain shared by every candidate; q: (A, N, n)
+    per-candidate drives; delta0: (A, n).  Returns δ: (A, N+1, n) with
+    δ[:, 0] = δ0.  One associative scan carries the single P-chain beside
+    all A drives, so a combine costs n³ + A·n² multiplies instead of the
+    A·(n³ + n²) of A separate `affine_prefix_scan` calls.
+    """
+    q_t = jnp.moveaxis(q, 0, 1)                               # (N, A, n)
+    Ps, qs = jax.lax.associative_scan(_combine_multi, (P, q_t), axis=0)
+    deltas = (jnp.einsum("kij,aj->aki", Ps, delta0)
+              + jnp.moveaxis(qs, 1, 0))                       # (A, N, n)
+    return jnp.concatenate([delta0[:, None], deltas], axis=1)
+
+
 def _guarded_max_defect(d: jnp.ndarray, axes) -> jnp.ndarray:
     """max |d| over ``axes`` with non-finite mapped to +inf (a NaN defect must
     read as 'not converged', not poison the early-exit comparison)."""
@@ -71,7 +96,6 @@ def defect_rollout(
     K: jnp.ndarray,
     A_cl: jnp.ndarray,
     iters: int = 6,
-    engine: str = "auto",
     exit_tol: float = 0.0,
     u_limits=None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
@@ -83,8 +107,6 @@ def defect_rollout(
     stop early once the defect falls below ``exit_tol`` (dynamics evaluation
     dominates the sweep cost; near convergence one or two sweeps suffice).
     """
-    from ilqr_tpu.ops.pallas_affine import affine_prefix_scan_multi
-
     def controls(X):
         dx = X[:-1] - X_old[:-1]
         u = U_old + alpha * u_ff + (K @ dx[..., None])[..., 0]
@@ -110,7 +132,7 @@ def defect_rollout(
         k, X, U, F, _ = c
         d = F - X[1:]
         deltas = affine_prefix_scan_multi(
-            A_cl, d[None], (x0 - X[0])[None], engine=engine)[0]
+            A_cl, d[None], (x0 - X[0])[None])[0]
         Xn = X + deltas
         Un = controls(Xn)
         Fn = eval_f(Xn, Un)
@@ -133,7 +155,6 @@ def open_loop_defect_rollout(
     U: jnp.ndarray,
     X_guess: jnp.ndarray | None = None,
     iters: int = 8,
-    engine: str = "auto",
     exit_tol: float = 0.0,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Open-loop rollout by parallel-in-time Newton sweeps.
@@ -151,8 +172,6 @@ def open_loop_defect_rollout(
     the defect falls below ``exit_tol`` (saves the vmapped Jacobian evaluation
     per spared sweep).  Returns (X: (N+1, n_x), cost, max_defect).
     """
-    from ilqr_tpu.ops.pallas_affine import affine_prefix_scan_multi
-
     N = U.shape[0]
     if X_guess is None:
         X0 = jnp.broadcast_to(x0, (N + 1,) + x0.shape)
@@ -172,7 +191,7 @@ def open_loop_defect_rollout(
         A = jax.vmap(lambda x, u: jax.jacfwd(f, argnums=0)(x, u))(X[:-1], U)
         d = F - X[1:]
         deltas = affine_prefix_scan_multi(
-            A, d[None], (x0 - X[0])[None], engine=engine)[0]
+            A, d[None], (x0 - X[0])[None])[0]
         Xn = X + deltas
         Fn = jax.vmap(f)(Xn[:-1], U)
         return k + 1, Xn, Fn, _guarded_max_defect(Fn - Xn[1:], (0, 1))
@@ -188,22 +207,19 @@ def open_loop_defect_rollout(
 
 @f32_matmuls
 def linesearch_defect_rollouts(system, x0, alphas, X_old, U_old, u_ff, K, exp,
-                               iters: int = 6, engine: str = "auto",
-                               exit_tol: float = 0.0, u_limits=None):
+                               iters: int = 6, exit_tol: float = 0.0, u_limits=None):
     """All α candidates via defect-correction sweeps with a SHARED scan.
 
     The linearized closed-loop transition A_cl = f_x + f_u K is independent of
     α, so all candidates share one transition chain: each sweep runs a single
-    multi-candidate affine prefix scan (`ops.pallas_affine`) instead of one
-    scan per α — one P-chain's worth of matrix products regardless of the
-    schedule length.  Returns (X_cands, U_cands, costs, defects) with a
-    leading α axis; `engine` selects the scan backend ('auto'|'pallas'|'xla').
+    multi-candidate affine prefix scan (`affine_prefix_scan_multi`) instead
+    of one scan per α — one P-chain's worth of matrix products regardless of
+    the schedule length.  Returns (X_cands, U_cands, costs, defects) with a
+    leading α axis.
     Sweeps stop early once EVERY candidate's defect is below ``exit_tol``
     (candidates that diverge keep the loop alive to the ``iters`` cap; they
     come back uncertified either way).
     """
-    from ilqr_tpu.ops.pallas_affine import affine_prefix_scan_multi
-
     A_cl = exp.f_x + exp.f_u @ K
     n_alpha = alphas.shape[0]
     X_init = jnp.broadcast_to(X_old, (n_alpha,) + X_old.shape)
@@ -232,7 +248,7 @@ def linesearch_defect_rollouts(system, x0, alphas, X_old, U_old, u_ff, K, exp,
         k, X, U, F, _ = c
         d = F - X[:, 1:]
         delta0 = x0[None] - X[:, 0]
-        deltas = affine_prefix_scan_multi(A_cl, d, delta0, engine=engine)
+        deltas = affine_prefix_scan_multi(A_cl, d, delta0)
         Xn = X + deltas
         Un = controls(Xn)
         Fn = eval_f(Xn, Un)

@@ -29,7 +29,6 @@ import jax.numpy as jnp
 
 from ilqr_tpu.models.base import f32_matmuls
 from ilqr_tpu.ops.linearize import TrajectoryExpansion
-from ilqr_tpu.ops.rollout import scan_unroll
 from ilqr_tpu.ops.smallmat import solve_small
 
 
@@ -70,7 +69,7 @@ def backward_pass(
     dynamics terms ``V_x·f_xx / V_x·f_ux / V_x·f_uu`` to the Q-expansion
     (Jacobson & Mayne; the reference is Gauss-Newton iLQR only).  DDP is
     inherently sequential — the terms couple to the running V_x, so they have
-    no associative-scan/Pallas counterpart.
+    no associative-scan counterpart.
 
     With ``noise`` (a (C, C_x, C_u) triple of stacked (N, …) arrays — see
     `ilqr_tpu.ilqg`), adds the iLQG noise-covariance terms; also sequential,
@@ -107,8 +106,7 @@ def backward_pass(
         Q_ux = l_ux + fuT_Vxx @ f_x
         Q_uu = l_uu + fuT_Vxx @ f_u
         if h is not None:
-            # V_x·f_·· by broadcasting, not dot_general — tiny contraction
-            # dims hit a slow scalar path on TPU (see ops/smallmat.py).
+            # V_x·f_·· as a broadcast sum over the tiny contraction dim.
             f_xx, f_ux, f_uu = h
             vx = V_x[:, None, None]
             Q_xx = Q_xx + jnp.sum(vx * f_xx, axis=0)
@@ -154,10 +152,7 @@ def backward_pass(
           None if hess is None else (hess.f_xx, hess.f_ux, hess.f_uu),
           None if noise is None else tuple(noise),
           defects)
-    # Unrolled to amortize TPU per-step dispatch overhead (see rollout.py;
-    # unroll=1 off-TPU to keep reverse-mode compile times sane).
-    (_, _), (u_ff, K, dVs) = jax.lax.scan(body, init, xs, reverse=True,
-                                          unroll=scan_unroll(8))
+    (_, _), (u_ff, K, dVs) = jax.lax.scan(body, init, xs, reverse=True)
     dV = jnp.sum(dVs, axis=0)
     ok = jnp.all(jnp.isfinite(u_ff)) & jnp.all(jnp.isfinite(K))
     return u_ff, K, dV, ok
@@ -198,8 +193,7 @@ def backward_pass_limited(
         Q_ux = l_ux + fuT_Vxx @ f_x
         Q_uu = l_uu + fuT_Vxx @ f_u
         if h is not None:
-            # V_x·f_·· by broadcasting, not dot_general — tiny contraction
-            # dims hit a slow scalar path on TPU (see ops/smallmat.py).
+            # V_x·f_·· as a broadcast sum over the tiny contraction dim.
             f_xx, f_ux, f_uu = h
             vx = V_x[:, None, None]
             Q_xx = Q_xx + jnp.sum(vx * f_xx, axis=0)
@@ -235,8 +229,7 @@ def backward_pass_limited(
            U_old),
           None if hess is None else (hess.f_xx, hess.f_ux, hess.f_uu),
           None if noise is None else tuple(noise))
-    (_, _), (u_ff, K, dVs) = jax.lax.scan(body, init, xs, reverse=True,
-                                          unroll=scan_unroll(8))
+    (_, _), (u_ff, K, dVs) = jax.lax.scan(body, init, xs, reverse=True)
     dV = jnp.sum(dVs, axis=0)
     ok = jnp.all(jnp.isfinite(u_ff)) & jnp.all(jnp.isfinite(K))
     return u_ff, K, dV, ok

@@ -5,7 +5,7 @@ Semantics match the reference forward pass
     u_k = u_old_k + α·u_ff_k + K_k (x_k − x_old_k)
     x_{k+1} = f(x_k, u_k),   cost += l(x_k, u_k),  + l_f(x_N) at the end.
 
-TPU-native addition: `linesearch_rollouts` evaluates the *entire* α schedule
+Device-side addition: `linesearch_rollouts` evaluates the *entire* α schedule
 as one vmapped rollout batch instead of the reference's host-side backtracking
 loop with a device sync per probe (`iLQR_class.py:281-301`).  Selecting the
 first improving α from the batch reproduces the reference's
@@ -14,39 +14,15 @@ while costing a single device program.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import jax
 import jax.numpy as jnp
+from jax.custom_batching import custom_vmap
 
-from ilqr_tpu.models.base import System, f32_matmuls
+from ilqr_tpu.models.base import System, f32_matmuls, unrolled_smallmath
 from ilqr_tpu.ops.integrators import step
-
-# Unrolling the sequential scans amortizes TPU per-step dispatch overhead
-# (~15 µs/step unrolled=1 on v5e) across several physical steps; 16 keeps
-# compile time modest while cutting rollout latency several-fold.  On CPU the
-# overhead being amortized doesn't exist and unrolling only multiplies
-# XLA:CPU compile time (catastrophically so for reverse-mode programs that
-# differentiate through these scans — see ilqr_tpu.diff), so non-TPU
-# backends scan with unroll=1.
-SCAN_UNROLL = 16
-
-
-def scan_unroll(tpu_value: int = SCAN_UNROLL) -> int:
-    """Unroll factor for the sequential scans (TPU only).
-
-    ILQR_TPU_SCAN_UNROLL overrides the default — compile time of large
-    programs (e.g. a full MPC loop) grows with the unrolled body size, so
-    latency-insensitive runs can trade a few % runtime for much faster
-    compiles with a smaller factor."""
-    import os
-
-    if jax.default_backend() != "tpu":
-        return 1
-    env = os.environ.get("ILQR_TPU_SCAN_UNROLL")
-    if env:
-        return max(1, min(int(env), tpu_value))
-    return tpu_value
 
 
 @f32_matmuls
@@ -59,7 +35,7 @@ def rollout(system: System, x0: jnp.ndarray, U: jnp.ndarray):
         x1 = step(system, x, u)
         return (x1, c), x
 
-    (x_N, cost), X_head = jax.lax.scan(body, (x0, 0.0), U, unroll=scan_unroll())
+    (x_N, cost), X_head = jax.lax.scan(body, (x0, 0.0), U)
     cost = cost + system.terminal_cost(system.params, x_N)
     X = jnp.concatenate([X_head, x_N[None]], axis=0)
     return X, cost
@@ -93,7 +69,7 @@ def closed_loop_rollout(
         return (x1, c), (x, u)
 
     (x_N, cost), (X_head, U_new) = jax.lax.scan(
-        body, (x0, 0.0), (X_old[:-1], U_old, u_ff, K), unroll=scan_unroll()
+        body, (x0, 0.0), (X_old[:-1], U_old, u_ff, K)
     )
     cost = cost + system.terminal_cost(system.params, x_N)
     X_new = jnp.concatenate([X_head, x_N[None]], axis=0)
@@ -114,38 +90,83 @@ def linesearch_rollouts(system, x0, alphas, X_old, U_old, u_ff, K,
 
 
 # ---------------------------------------------------------------------------
-# Width-2 "wide" variants of the single-instance sequential chains.
-#
-# Measured on v5e (round 5): an UNBATCHED (n_x,)-vector scan body lowers to
-# the TPU scalar core — ~8 µs/step regardless of unroll factor — while ANY
-# batch of >= 2 instances gets the VPU vector layout (~0.46 µs/step at
-# n_x=4; a width-1 vmap does NOT help, the size-1 axis is squeezed out).
-# Duplicating the instance and discarding the copy is therefore ~18x faster
-# despite doing 2x the flops, and bitwise exact (both lanes compute the
-# same schedule).  Callers that are genuinely single-instance (the solver's
-# initial rollout, the compat facade's forward_pass) use these; batched
-# callers must NOT (they would double their work) — the custom_vmap
-# wrappers in ops/pallas_batched.py route vmapped calls away from them.
+# custom_vmap wrappers: the single-instance primal is the plain sequential
+# engine; the vmap rule traces the batched program under
+# `unrolled_smallmath`, which keeps every model intermediate at the batch
+# shape instead of materializing (B, n, n) broadcast products.  The solver
+# calls these, so `vmap(solve)` (solve_batched, run_mpc_batched) picks the
+# batched trace up without a flag.
 # ---------------------------------------------------------------------------
 
 
-def rollout_wide(system: System, x0: jnp.ndarray, U: jnp.ndarray):
-    """`rollout` executed as a width-2 batch on TPU (see note above)."""
-    if jax.default_backend() != "tpu":
-        return rollout(system, x0, U)
-    X2, c2 = jax.vmap(lambda x: rollout(system, x, U))(
-        jnp.stack([x0, x0]))
-    return X2[0], c2[0]
+def _batched_axes(in_batched):
+    return tuple(jax.tree_util.tree_map(lambda b: 0 if b else None, b_)
+                 for b_ in in_batched)
 
 
-def closed_loop_rollout_wide(system, x0, alpha, X_old, U_old, u_ff, K,
-                             u_limits=None):
-    """`closed_loop_rollout` executed as a width-2 batch on TPU."""
-    if jax.default_backend() != "tpu":
-        return closed_loop_rollout(system, x0, alpha, X_old, U_old, u_ff, K,
-                                   u_limits)
-    X2, U2, c2 = jax.vmap(
-        lambda x: closed_loop_rollout(system, x, alpha, X_old, U_old, u_ff,
-                                      K, u_limits)
-    )(jnp.stack([x0, x0]))
-    return X2[0], U2[0], c2[0]
+@custom_vmap
+def linesearch_rollouts_smart(system: System, x0, alphas, X_old, U_old,
+                              u_ff, K, u_limits=None):
+    """`linesearch_rollouts` whose vmap traces under `unrolled_smallmath`."""
+    return linesearch_rollouts(system, x0, alphas, X_old, U_old, u_ff, K,
+                               u_limits=u_limits)
+
+
+@linesearch_rollouts_smart.def_vmap
+def _ls_rollouts_smart_vmap(axis_size, in_batched, system, x0, alphas,
+                            X_old, U_old, u_ff, K, u_limits=None):
+    with unrolled_smallmath():
+        out = jax.vmap(
+            lambda s, x, a, X, U, f, k, ul: linesearch_rollouts(
+                s, x, a, X, U, f, k, u_limits=ul),
+            in_axes=_batched_axes(in_batched))(
+                system, x0, alphas, X_old, U_old, u_ff, K, u_limits)
+    return out, (True, True, True)
+
+
+@custom_vmap
+def rollout_flagged(system: System, x0, U):
+    """`rollout` whose vmap traces under `unrolled_smallmath`."""
+    return rollout(system, x0, U)
+
+
+@rollout_flagged.def_vmap
+def _rollout_flagged_vmap(axis_size, in_batched, system, x0, U):
+    with unrolled_smallmath():
+        out = jax.vmap(rollout, in_axes=_batched_axes(in_batched))(
+            system, x0, U)
+    return out, (True, True)
+
+
+@functools.lru_cache(maxsize=None)
+def _open_loop_init_smart(iters: int, tol: float):
+    @custom_vmap
+    def init_rollout(system: System, x0, U):
+        """Solver init rollout for init_rollout='defect'.
+
+        Single instance: parallel-in-time Newton sweeps with the sequential
+        rollout as the fallback when certification fails.  Under
+        vmap(solve) the rule below uses the plain batched rollout instead:
+        the cond would lower to a select and execute BOTH branches per
+        instance.
+        """
+        from ilqr_tpu.ops.parallel_rollout import open_loop_defect_rollout
+
+        X_p, c_p, defect = open_loop_defect_rollout(
+            system, x0, U, iters=iters, exit_tol=1e-3 * tol)
+        return jax.lax.cond(
+            defect < tol,
+            lambda: (X_p, c_p),
+            lambda: rollout(system, x0, U),
+        )
+
+    @init_rollout.def_vmap
+    def _rule(axis_size, in_batched, system, x0, U):
+        return _rollout_flagged_vmap(axis_size, in_batched, system, x0, U)
+
+    return init_rollout
+
+
+def open_loop_init_smart(system: System, x0, U, iters, tol):
+    """Defect-engine initial rollout (X, cost); see `_open_loop_init_smart`."""
+    return _open_loop_init_smart(int(iters), float(tol))(system, x0, U)

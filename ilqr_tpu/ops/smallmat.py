@@ -1,12 +1,13 @@
-"""Closed-form batched small-matrix solves/inverses for the TPU hot path.
+"""Closed-form batched small-matrix solves/inverses for the solver hot path.
 
 `jnp.linalg.solve` on (…, n, n) with n ≤ 4 lowers to pivoted LU — a scalar,
-control-flow-heavy path that is brutally slow per element on TPU and blocks
-vectorization across the time/batch axes.  Control problems live at
+control-flow-heavy path that blocks vectorization across the time/batch
+axes.  Control problems live at
 n_x ≤ ~8, n_u ≤ ~4, and the Riccati algebra is dominated by exactly these
 tiny solves (`iLQR_class.py:109-110` in the reference; the combine in
-`ilqr_tpu.ops.parallel_riccati`), so closed forms are the difference between
-VPU-speed-of-light and a per-element interpreter.
+`ilqr_tpu.ops.parallel_riccati`), so closed forms keep them pure
+elementwise arithmetic.  Whether they beat `jnp.linalg` on the GPU has not
+been measured.
 
 Strategy by static dimension:
     n = 1, 2, 3 : adjugate (cofactor) inverse — pure elementwise arithmetic
@@ -98,7 +99,7 @@ def _inv_qr(A):
     pivoting, so the error is ~cond(A)·eps — optimal for the working
     precision.  Everything is static-shape unrolled elementwise arithmetic
     (broadcast sums, no tiny dot_generals, no gather/scatter), so it batches
-    over arbitrary leading axes on the VPU and is differentiable.
+    over arbitrary leading axes and is differentiable.
     """
     n = A.shape[-1]
     dt = A.dtype
@@ -140,10 +141,8 @@ def _inv_schur_recursive(A):
     ≤16-sized leaves (the Householder-QR inverse), batched matmuls between.
 
     `jnp.linalg.inv`/`solve` at these sizes lower to pivoted LU — the
-    scalar, control-flow-heavy path that serializes on TPU and dominated
-    the n_x=32 associative-scan backward pass (measured: 114.8 → 47.3 ms
-    at N=4096 from this change alone, 2.4×).  Block elimination is
-    unpivoted, so
+    scalar, control-flow-heavy path that dominated the n_x=32
+    associative-scan backward pass.  Block elimination is unpivoted, so
     one Newton–Schulz refinement step (two batched matmuls, MXU-friendly)
     restores the digits an ill-conditioned leading block can cost; for the
     Riccati matrices this path serves (I + C·J with C, J PSD; Q_uu + reg)
@@ -199,7 +198,7 @@ def solve_small(A, B):
 
     B: (…, n) or (…, n, m).  Uses the closed-form inverse for n ≤ 64 — one
     shared inverse amortized across all right-hand sides, all elementwise
-    VPU arithmetic / batched block matmuls (no pivoted LU on TPU).
+    arithmetic / batched block matmuls (no pivoted LU).
     """
     n = A.shape[-1]
     if n > 64:

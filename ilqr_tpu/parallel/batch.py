@@ -1,7 +1,7 @@
 """Batch-parallel solving: thousands of MPC/trajectory problems over a mesh.
 
-Greenfield TPU capability (BASELINE.json config 4: "4096 vmapped
-double-pendulum instances sharded across chips"); the reference solves one
+Greenfield capability (BASELINE.json config 4: "4096 vmapped
+double-pendulum instances sharded across devices"); the reference solves one
 problem at a time on one device.
 
 The whole solver is pure and pytree-based, so batch parallelism is just
@@ -15,7 +15,6 @@ wrapping `jax.jit` around a fresh lambda per call would recompile every time.
 """
 from __future__ import annotations
 
-import dataclasses
 import functools
 
 import jax
@@ -27,24 +26,8 @@ from ilqr_tpu.mpc import run_mpc_batched
 from ilqr_tpu.solver import IlqrConfig, solve
 
 
-def _batch_safe(config: IlqrConfig) -> IlqrConfig:
-    """Pin 'auto' line-search to the vmapped scan for BATCHED solves.
-
-    `solve`'s 'auto' picks the chunked parallel-in-time line search from
-    N≥256 — the single-instance winner.  Under vmap its certification
-    `lax.cond` fallback lowers to a select that executes BOTH branches per
-    instance (an exact O(N) rollout on top of the chunk sweeps), and vmap
-    already fills the chip, so batched solves keep the sequential engines
-    (same reasoning as `mpc._mpc_auto_config` for `run_mpc_batched`).
-    """
-    if config.rollout == "auto":
-        return dataclasses.replace(config, rollout="scan")
-    return config
-
-
 @functools.partial(jax.jit, static_argnames=("config",))
 def _solve_batched(system, x0_batch, U_init_batch, config):
-    config = _batch_safe(config)
     return jax.vmap(lambda x0, U0: solve(system, x0, U0, config))(
         x0_batch, U_init_batch
     )
@@ -75,10 +58,7 @@ def solve_batched(
         )
     if mesh is not None:
         # shard_map (not jit auto-partitioning): each shard runs the whole
-        # vmapped solve on its local slice — zero collectives, and the
-        # batch-fused Pallas kernels the solve dispatches to under vmap
-        # (ops/pallas_batched.py) are opaque custom calls the SPMD
-        # partitioner could not split on a real multi-chip mesh.
+        # vmapped solve on its local slice with zero collectives.
         B = x0_batch.shape[0]
         D = mesh.shape[axis]
         pad = (-B) % D
@@ -101,9 +81,10 @@ def solve_batched(
         sharded = jax.shard_map(
             lambda xs, us: _solve_batched(system, xs, us, config),
             mesh=mesh, in_specs=(P(axis), P(axis)), out_specs=P(axis),
-            # pallas_call's out_shape carries no varying-mesh-axes
-            # annotation, so static vma analysis cannot see through the
-            # batch-fused kernels the solve dispatches to.
+            # The solver's scans start from constant carries (the zero cost
+            # accumulator, zero gains) that the static vma check types as
+            # replicated while their bodies make them shard-varying; every
+            # shard runs an independent solve, so there is nothing to check.
             check_vma=False,
         )
         sols = sharded(x0_batch, U_init_batch)
@@ -126,8 +107,8 @@ def solve_multistart(
     iLQR is a local method — on multimodal problems (e.g. the double-pendulum
     swing-up, where the reference converges to cost 214.3 and this framework
     to 37.1 from different warm starts) the optimum found depends on the
-    initialization.  Batch parallelism makes multistart essentially free on
-    TPU: all S solves run as one vmapped program, sharded over the mesh.
+    initialization.  Batch parallelism makes multistart cheap: all S solves
+    run as one vmapped program, sharded over the mesh.
 
     U_inits: (S, N, n_u).  Returns (best: IlqrSolution of the lowest-cost
     converged-or-maxiter start, sols: the full batched solutions).

@@ -545,8 +545,7 @@ def solve_horizon_sharded(
     from ilqr_tpu.ops.rollout import rollout as _rollout
 
     X_p, c_p, defect0 = open_loop_defect_rollout(
-        system, x0, U_init,
-        iters=config.defect_iters, engine=config.defect_engine)
+        system, x0, U_init, iters=config.defect_iters)
     X0_full, cost0 = jax.lax.cond(
         defect0 < config.defect_tol,
         lambda: (X_p, c_p),

@@ -1,7 +1,7 @@
 """Device-mesh utilities.
 
 The reference has no distribution whatsoever (SURVEY.md §2: no pmap/pjit/
-collectives).  These helpers are the greenfield TPU substrate: a 1-D or 2-D
+collectives).  These helpers are the greenfield device substrate: a 1-D or 2-D
 `jax.sharding.Mesh` with a ``batch`` axis (MPC problem instances) and a
 ``time`` axis (horizon sharding for the parallel Riccati factorization).
 """

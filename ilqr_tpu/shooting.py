@@ -16,7 +16,7 @@ which buys two things this framework cares about:
   interpolation to the goal, a stale MPC plan, a coarse-grid solution); the
   solver closes the gaps while optimizing, where single shooting would have
   to first discover a comparable trajectory through rollouts;
-* **a TPU-friendly iteration** — with defects allowed, the update pass is
+* **an iteration with no sequential nonlinearity** — with defects allowed, the update pass is
   the AFFINE recursion δx⁺ = f_x δx + f_u δu + α·d (no nonlinear rollout
   inside the line search at all), and the new defects/costs are evaluated by
   one vmapped (embarrassingly parallel over time) pass.  Nothing in the
@@ -49,7 +49,6 @@ from ilqr_tpu.models.base import System, f32_matmuls
 from ilqr_tpu.ops.integrators import step
 from ilqr_tpu.ops.linearize import linearize_trajectory
 from ilqr_tpu.ops.riccati import backward_pass
-from ilqr_tpu.ops.rollout import scan_unroll
 from ilqr_tpu.solver import (
     CONVERGED,
     LINESEARCH_FAILED,
@@ -70,11 +69,11 @@ class MsConfig:
     an iteration), up to nu_max.
     dtol: max-norm defect feasibility tolerance required for convergence.
     update_engine: how the multi-α affine update pass runs — 'seq' (vmapped
-    sequential scan), 'xla' (O(log N) associative prefix scan), 'pallas'
-    (fused multi-candidate TPU kernel, `ops/pallas_affine.py`), 'auto'
-    (pallas on TPU for n_x ≤ 8, seq elsewhere).  All three compute the SAME
-    affine recursion — unlike single shooting there is no nonlinear rollout
-    to approximate, so the parallel engines are exact, not defect-certified.
+    sequential scan) or 'xla' (O(log N) associative prefix scan,
+    `ops.parallel_rollout.affine_prefix_scan_multi`); 'auto' is 'seq'.  Both
+    compute the SAME affine recursion — unlike single shooting there is no
+    nonlinear rollout to approximate, so the parallel engine is exact, not
+    defect-certified.
     """
 
     nu0: float = 10.0
@@ -84,9 +83,9 @@ class MsConfig:
     update_engine: str = "auto"
 
     def __post_init__(self):
-        if self.update_engine not in ("auto", "seq", "xla", "pallas"):
+        if self.update_engine not in ("auto", "seq", "xla"):
             raise ValueError(
-                f"update_engine must be 'auto'|'seq'|'xla'|'pallas', "
+                f"update_engine must be 'auto'|'seq'|'xla', "
                 f"got {self.update_engine!r}"
             )
 
@@ -140,8 +139,7 @@ def _update_pass(alpha, exp, d, u_ff, K):
 
     n_x = d.shape[-1]
     dx_N, (dX_head, dU) = jax.lax.scan(
-        body, jnp.zeros((n_x,), d.dtype), (exp.f_x, exp.f_u, d, u_ff, K),
-        unroll=scan_unroll(),
+        body, jnp.zeros((n_x,), d.dtype), (exp.f_x, exp.f_u, d, u_ff, K)
     )
     dX = jnp.concatenate([dX_head, dx_N[None]], axis=0)
     return dX, dU
@@ -154,17 +152,14 @@ def _update_pass_multi(alphas, exp, d, u_ff, K, engine: str):
     Substituting δu = α·u_ff + K δx gives the closed-loop affine recursion
     δx⁺ = (f_x + f_u K) δx + α·(f_u u_ff + d): one transition chain shared by
     every α with per-candidate drive vectors — exactly the shape of
-    `ops.pallas_affine.affine_prefix_scan_multi` (O(log N) depth).  EXACT for
-    every engine (the update pass is affine; nothing to certify).
+    `ops.parallel_rollout.affine_prefix_scan_multi` (O(log N) depth).  EXACT
+    for both engines (the update pass is affine; nothing to certify).
     Returns (δX (A, N+1, n_x), δU (A, N, n_u)).
     """
-    if engine == "auto":
-        on_tpu = jax.default_backend() == "tpu"
-        engine = "pallas" if (on_tpu and d.shape[-1] <= 8) else "seq"
-    if engine == "seq":
+    if engine in ("auto", "seq"):
         return jax.vmap(lambda a: _update_pass(a, exp, d, u_ff, K))(alphas)
 
-    from ilqr_tpu.ops.pallas_affine import affine_prefix_scan_multi
+    from ilqr_tpu.ops.parallel_rollout import affine_prefix_scan_multi
 
     A = alphas.shape[0]
     n_x = d.shape[-1]
@@ -172,7 +167,7 @@ def _update_pass_multi(alphas, exp, d, u_ff, K, engine: str):
     base = (exp.f_u @ u_ff[..., None])[..., 0] + d         # (N, n_x)
     q = alphas[:, None, None] * base[None]                 # (A, N, n_x)
     dX = affine_prefix_scan_multi(
-        P, q, jnp.zeros((A, n_x), d.dtype), engine=engine)  # (A, N+1, n_x)
+        P, q, jnp.zeros((A, n_x), d.dtype))                 # (A, N+1, n_x)
     dU = (alphas[:, None, None] * u_ff[None]
           + (K[None] @ dX[:, :-1, :, None])[..., 0])        # (A, N, n_u)
     return dX, dU
@@ -180,27 +175,12 @@ def _update_pass_multi(alphas, exp, d, u_ff, K, engine: str):
 
 def _backward_ms(exp, d, reg, config: IlqrConfig):
     """Defect-aware backward pass honoring `config.backward` (mirrors
-    `solver._backward`): 'scan' sequential, 'pscan' associative O(log N),
-    'pallas' fused TPU kernel — all support the GNMS defects."""
-    backward = config.backward
-    if backward == "auto":
-        n_x = exp.v_x.shape[-1]
-        N = exp.l_u.shape[0]
-        on_tpu = jax.default_backend() == "tpu"
-        backward = "pallas" if (on_tpu and n_x <= 4 and N >= 256) else "scan"
-    if backward == "pscan":
+    `solver._backward`): 'scan'/'auto' sequential, 'pscan' associative
+    O(log N) — both support the GNMS defects."""
+    if config.backward == "pscan":
         from ilqr_tpu.ops.parallel_riccati import backward_pass_associative
 
         return backward_pass_associative(exp, reg, defects=d)
-    if backward == "pallas":
-        n_u = exp.l_u.shape[-1]
-        if n_u <= 4:
-            from ilqr_tpu.ops.pallas_riccati import backward_pass_pallas_fused
-
-            return backward_pass_pallas_fused(exp, reg, defects=d)
-        from ilqr_tpu.ops.pallas_riccati import backward_pass_pallas
-
-        return backward_pass_pallas(exp, reg, defects=d)
     return backward_pass(exp, reg, defects=d)
 
 
@@ -232,18 +212,16 @@ def solve_ms(
         # Default state warm start: the rollout of U_init (iteration 1 then
         # matches single shooting, d ≡ 0).  config.init_rollout='defect'
         # builds it with the O(log N) parallel-in-time Newton sweeps instead
-        # of the O(N) sequential chain — at long horizons the sequential
-        # initial rollout dominates the whole MS solve (measured N=100k
-        # pendulum: ~6 s rollout vs ~10 ms per MS iteration).  Unlike in
+        # of the O(N) sequential chain, which at long horizons can dominate
+        # the whole MS solve.  Unlike in
         # `solve`, an unconverged defect rollout needs no fallback: the
         # residual gaps are exactly what the MS iteration closes anyway, so
         # the certificate only seeds cost0/merit bookkeeping.
-        if config.resolved_init_rollout(N) == "defect":
+        if config.resolved_init_rollout() == "defect":
             from ilqr_tpu.ops.parallel_rollout import open_loop_defect_rollout
 
             X_p, _, _ = open_loop_defect_rollout(
-                system, x0, U_init,
-                iters=config.defect_iters, engine=config.defect_engine)
+                system, x0, U_init, iters=config.defect_iters)
             # Unlike `solve`, an UNCONVERGED defect rollout needs no exact
             # fallback — residual gaps are what the MS iteration closes.
             # Only divergence to non-finite values must be excluded: fall

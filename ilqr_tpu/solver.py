@@ -28,29 +28,22 @@ import jax
 import jax.numpy as jnp
 
 from ilqr_tpu.models.base import System, f32_matmuls
-from ilqr_tpu.ops.linearize import linearize_trajectory
+from ilqr_tpu.ops.linearize import linearize_trajectory_smart
 from ilqr_tpu.ops.riccati import backward_pass
-from ilqr_tpu.ops.rollout import rollout, linesearch_rollouts
+from ilqr_tpu.ops.rollout import (
+    linesearch_rollouts_smart,
+    open_loop_init_smart,
+    rollout_flagged,
+)
 
 # Solve status codes (returned in IlqrSolution.status).
 RUNNING, CONVERGED, LINESEARCH_FAILED, MAXITER = 0, 1, 2, 3
 
-# 'auto' thresholds for the parallel-in-time rollout paths: below these
-# horizon lengths the sequential scan's lower per-step work wins; above them
-# its O(N) latency dominates.  Re-derived from END-TO-END solve latency on
-# v5e (never from standalone stage timings — bench.py stage_profile is the
-# methodology): the single-instance sequential init rollout lands on the TPU
-# scalar core (~8 µs/step — see ops/rollout.py::rollout_wide) and the defect
-# init beats even the width-2 VPU chain from N≈200 (measured DP N=500:
-# 12.5 → 8.5 ms whole-solve).  The line-search threshold selects the
-# CHUNKED engine (exact nonlinear chunks + boundary Newton), which beats the
-# 10-α vmapped scan from N≈400 on every system measured (round-5 whole-solve
-# sweep, same converged costs: DP 10.6→6.6 ms at N=500, 106→46 ms at
-# N=4096; pendulum 10.7→4.4 ms at N=400; cartpole 134→117 ms at N=500,
-# 826→371 ms at N=2000; tie at N=250 — the pure defect engine, by contrast,
-# loses until several-thousand steps: N=2000 defect-LS 51.8 vs scan 32.0).
-_CHUNKED_LS_N = 256
-_DEFECT_INIT_N = 192
+# Engine values that no longer exist, and what replaces each.
+_REMOVED = {
+    "backward": {"pallas": "'pscan' (the XLA associative scan)"},
+    "rollout": {"pallas": "'scan' (the vmapped sequential rollouts)"},
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,16 +60,16 @@ class IlqrConfig:
     alpha_factor: float = 0.5
     n_alphas: int = 10
     min_alpha: float = 1e-8
-    # 'auto' picks the fused Pallas parallel scan on TPU for n_x≤12, N≥256,
-    # the XLA associative scan ('pscan') on TPU for larger n_x, and the
-    # sequential scan otherwise; explicit: 'scan' | 'pscan' | 'pallas'.
+    # Backward engine: 'scan' (sequential Riccati recursion) or 'pscan'
+    # (O(log N)-depth associative suffix scan, ops/parallel_riccati.py).
+    # 'auto' is 'scan' on every platform.
     backward: str = "auto"
     # Full DDP: add the second-order dynamics terms V_x·f_xx/f_ux/f_uu to the
     # Q-expansion (Jacobson & Mayne).  Quadratic local convergence near the
     # optimum at the price of an extra Hessian evaluation per iteration and a
     # possibly-indefinite Q_uu — pair with adaptive_reg=True on hard problems.
     # backward='scan'/'auto' runs the exact sequential recursion;
-    # 'pscan'/'pallas' run ddp_sweeps frozen-value-trace suffix scans
+    # 'pscan' runs ddp_sweeps frozen-value-trace suffix scans
     # (O(sweeps·log N) depth, fixed point = the exact recursion —
     # ops/parallel_riccati.py::backward_pass_ddp_parallel).  The same applies
     # to the iLQG ``noise`` terms.
@@ -87,16 +80,14 @@ class IlqrConfig:
     # correctness — the line search guards descent).
     ddp_sweeps: int = 3
     # Line-search rollout engine: 'scan' = one vmapped XLA rollout batch over
-    # all α; 'pallas' = fused sequential kernels (candidate costs in one
-    # chain, then one materializing rollout for the accepted α); 'defect' =
+    # all α; 'defect' =
     # parallel-in-time Newton-Picard sweeps (O(log N) depth); 'chunked' =
     # multiple-shooting rollouts (exact nonlinear chunks of length ~√N
     # vmapped, O(C) boundary Newton correction — larger contraction region
     # than 'defect' on drift-prone systems, ops/chunked_rollout.py).  The
     # parallel modes share a two-phase schedule (first-α alone, then the full
     # candidate batch only if it is rejected) and an exact-sequential fallback
-    # when certification fails.  'auto' picks 'chunked' on TPU above
-    # N ≥ _CHUNKED_LS_N (unconstrained) and 'scan' otherwise.
+    # when certification fails.  'auto' is 'scan'.
     rollout: str = "auto"
     # Defect-correction rollout settings (rollout='defect'): max Newton-Picard
     # sweeps per rollout and the certification threshold above which a
@@ -117,11 +108,8 @@ class IlqrConfig:
     # O(log N) depth instead of the O(N) chain that dominates long-horizon
     # solve latency).  'defect' self-certifies: if the final defect exceeds
     # defect_tol the solver falls back to the sequential rollout (lax.cond).
-    # 'auto' picks 'defect' on TPU above N ≥ _DEFECT_INIT_N.
+    # 'auto' is 'scan'.
     init_rollout: str = "auto"
-    # Scan backend for the defect sweeps' shared affine prefix scan:
-    # 'auto' = fused Pallas kernel on TPU (n_x ≤ 8), XLA otherwise.
-    defect_engine: str = "auto"
     reg_init: float = 0.0
     reg_factor: float = 10.0
     reg_max: float = 1e9
@@ -137,72 +125,48 @@ class IlqrConfig:
     # (ops/limited_parallel.py): each sweep is one O(log N) suffix scan with
     # the clamped set frozen + a projected-Newton set update; the iteration
     # exits early once the set stops changing.  Used when limits are combined
-    # with backward='pallas'/'pscan' (or 'auto' on TPU).
+    # with backward='pscan'.
     active_set_sweeps: int = 12
     # iLQG stochastic dynamics (ilqr_tpu.ilqg): a pure function
     # noise_fn(x, u) -> (n_x, n_w) giving the noise-direction matrix C of
     # x⁺ = f(x, u) + C(x, u)·ξ, ξ ~ N(0, I).  The backward pass minimizes the
     # EXPECTED cost (noise-covariance Q-terms); nominal rollouts, line search
     # and the convergence test stay deterministic.  backward='scan'/'auto' is
-    # the exact sequential recursion; 'pscan'/'pallas' the frozen-value
-    # parallel form (see ddp above).
+    # the exact sequential recursion; 'pscan' the frozen-value parallel form
+    # (see ddp above).
     noise: Any = None
 
     def __post_init__(self):
-        if self.backward not in ("auto", "scan", "pscan", "pallas"):
-            raise ValueError(
-                f"backward must be 'auto'|'scan'|'pscan'|'pallas', "
-                f"got {self.backward!r}"
-            )
-        if self.rollout not in ("auto", "scan", "pallas", "defect", "chunked"):
-            raise ValueError(
-                f"rollout must be 'auto'|'scan'|'pallas'|'defect'|'chunked', "
-                f"got {self.rollout!r}"
-            )
-        if self.init_rollout not in ("auto", "scan", "defect"):
-            raise ValueError(
-                f"init_rollout must be 'auto'|'scan'|'defect', "
-                f"got {self.init_rollout!r}"
-            )
-        if self.defect_engine not in ("auto", "pallas", "xla"):
-            raise ValueError(
-                f"defect_engine must be 'auto'|'pallas'|'xla', "
-                f"got {self.defect_engine!r}"
-            )
+        for field, allowed in (
+                ("backward", ("auto", "scan", "pscan")),
+                ("rollout", ("auto", "scan", "defect", "chunked")),
+                ("init_rollout", ("auto", "scan", "defect"))):
+            value = getattr(self, field)
+            if value in _REMOVED.get(field, {}):
+                raise ValueError(
+                    f"{field}={value!r} was removed; use "
+                    f"{_REMOVED[field][value]}")
+            if value not in allowed:
+                raise ValueError(
+                    f"{field} must be one of {allowed}, got {value!r}")
         if (self.u_min is None) != (self.u_max is None):
             raise ValueError("u_min and u_max must be set together")
-        if self.u_min is not None:
-            if self.rollout not in ("auto", "scan", "defect", "chunked"):
-                raise ValueError(
-                    "control limits require rollout='scan', 'defect' or "
-                    "'chunked' (the pallas rollout kernels do not clamp)")
         if self.ddp_sweeps < 1:
             raise ValueError(f"ddp_sweeps must be >= 1, got {self.ddp_sweeps}")
         if self.maxiter < 1:
             raise ValueError(f"maxiter must be >= 1, got {self.maxiter}")
 
-    def resolved_rollout(self, N: int) -> str:
+    def resolved_rollout(self) -> str:
         """Line-search engine after 'auto' resolution (static, trace-time).
 
-        The parallel-in-time engines pay off where the O(N) sequential chain
-        dominates: TPU, long horizon.  'chunked' is preferred over 'defect'
-        for 'auto' — same asymptotics, far larger contraction region (exact
-        nonlinear chunks), so it certifies where the per-step Newton-Picard
-        sweeps latch to the exact fallback (the 100k-step cartpole).
+        'auto' is the sequential 'scan' engine on every platform; the
+        parallel-in-time engines ('defect', 'chunked') are chosen by name.
         """
-        if self.rollout != "auto":
-            return self.rollout
-        if jax.default_backend() == "tpu" and N >= _CHUNKED_LS_N:
-            return "chunked"
-        return "scan"
+        return "scan" if self.rollout == "auto" else self.rollout
 
-    def resolved_init_rollout(self, N: int) -> str:
+    def resolved_init_rollout(self) -> str:
         """Initial-rollout engine after 'auto' resolution (trace-time)."""
-        if self.init_rollout != "auto":
-            return self.init_rollout
-        if jax.default_backend() == "tpu" and N >= _DEFECT_INIT_N:
-            return "defect"
-        return "scan"
+        return "scan" if self.init_rollout == "auto" else self.init_rollout
 
     def limit_arrays(self, n_u: int, dtype):
         """(lo, hi) broadcast to (n_u,), or None if unconstrained."""
@@ -246,28 +210,16 @@ class IlqrSolution:
 
 
 def _backward(exp, U, reg, config: IlqrConfig, hess=None, noise=None):
+    parallel = config.backward == "pscan"
     if config.u_min is not None:
         lo, hi = config.limit_arrays(U.shape[-1], U.dtype)
-        backward = config.backward
-        if backward == "auto":
-            # Same auto rule as the unconstrained pass: the parallel
-            # frozen-active-set form (O(sweeps·log N) suffix scans) beats the
-            # sequential per-step boxQP from a few hundred steps on TPU; its
-            # XLA engine is dimension-generic, so big systems use it too.
-            n_x = exp.v_x.shape[-1]
-            N = exp.l_u.shape[0]
-            if jax.default_backend() == "tpu" and N >= 256:
-                backward = "pallas" if n_x <= 12 else "pscan"
-            else:
-                backward = "scan"
-        if backward in ("pallas", "pscan"):
+        if parallel:
             from ilqr_tpu.ops.limited_parallel import (
                 backward_pass_limited_parallel,
             )
 
             return backward_pass_limited_parallel(
                 exp, U, lo, hi, reg, sweeps=config.active_set_sweeps,
-                engine="pallas" if backward == "pallas" else "xla",
                 hess=hess, noise=noise)
         from ilqr_tpu.ops.riccati import backward_pass_limited
 
@@ -275,69 +227,19 @@ def _backward(exp, U, reg, config: IlqrConfig, hess=None, noise=None):
                                      qp_iters=config.boxqp_iters, hess=hess,
                                      noise=noise)
     if config.ddp or noise is not None:
-        if config.backward in ("pscan", "pallas"):
+        if parallel:
             from ilqr_tpu.ops.parallel_riccati import (
                 backward_pass_ddp_parallel,
             )
 
             return backward_pass_ddp_parallel(
-                exp, reg, hess=hess, noise=noise, sweeps=config.ddp_sweeps,
-                engine="pallas" if config.backward == "pallas" else "xla")
+                exp, reg, hess=hess, noise=noise, sweeps=config.ddp_sweeps)
         return backward_pass(exp, reg, hess=hess, noise=noise)
-    backward = config.backward
-    if backward == "auto":
-        # Sequential scan has the least per-step work but O(N) latency; the
-        # fused Pallas parallel scan wins on TPU from a few hundred steps.
-        # Beyond the Pallas kernels' VMEM-driven n_x cap, the XLA
-        # associative scan ('pscan') is still O(log N) depth and beats the
-        # sequential scan by ~5× at N=4096 (VERDICT r2 item 2: 'auto' must
-        # never silently fall off the parallel path on big systems).
-        n_x = exp.v_x.shape[-1]
-        N = exp.l_u.shape[0]
-        on_tpu = jax.default_backend() == "tpu"
-        # The N >= 256 threshold was re-probed in round 4 after the fused
-        # kernel sped up 1.7x: STANDALONE slope timings say fused wins from
-        # N ~ 32 (5.5 us vs 1020 us at N=200), but inside the MPC step scan
-        # the sequential backward pipelines with the surrounding program
-        # and lowering the threshold to 32 made the RTI step 2.3x SLOWER
-        # (0.27 -> 0.61 ms/step).  Stage-by-stage numbers on this machine
-        # are not trustworthy (NOTES.md); the threshold stays where the
-        # end-to-end MPC metrics are best.
-        if on_tpu and n_x <= 16 and N >= 256:
-            backward = "pallas"
-        elif on_tpu and N >= 256:
-            backward = "pscan"
-        else:
-            backward = "scan"
-    if backward == "pscan":
+    if parallel:
         from ilqr_tpu.ops.parallel_riccati import backward_pass_associative
 
         return backward_pass_associative(exp, reg)
-    if backward == "pallas":
-        # Fully fused kernel (elements + suffix scan + closure + gains in one
-        # Pallas program) when the control dimension fits; the element-scan
-        # kernel otherwise.
-        n_u = exp.l_u.shape[-1]
-        if n_u <= 6:
-            # custom_vmap wrapper: vmapping the fused kernel gives each
-            # instance an underfilled per-instance block (12% tile fill at
-            # N=128) — under vmap(solve) the batched sequential kernel is
-            # the right engine for the B-large/N-moderate corner.
-            from ilqr_tpu.ops.pallas_batched import (
-                backward_pass_fused_smart,
-            )
-
-            return backward_pass_fused_smart(exp, reg)
-        from ilqr_tpu.ops.pallas_riccati import backward_pass_pallas
-
-        return backward_pass_pallas(exp, reg)
-    # 'scan': custom_vmap wrapper — identical sequential recursion single-
-    # instance, but under vmap(solve) on TPU it dispatches to the batched
-    # Pallas kernel (batch on the VPU tiles, time on the sequential grid)
-    # instead of a vmapped N-step XLA scan (ops/pallas_batched.py).
-    from ilqr_tpu.ops.pallas_batched import backward_pass_smart
-
-    return backward_pass_smart(exp, reg)
+    return backward_pass(exp, reg)
 
 
 @f32_matmuls
@@ -374,28 +276,15 @@ def solve(
     if limits is not None:
         # Feasible initial guess: the initial rollout applies U_init verbatim.
         U_init = jnp.clip(U_init, limits[0], limits[1])
-    rollout_mode = config.resolved_rollout(N)
-    if config.resolved_init_rollout(N) == "defect":
+    rollout_mode = config.resolved_rollout()
+    if config.resolved_init_rollout() == "defect":
         # custom_vmap wrapper: single-instance = defect sweeps with the
-        # width-2 sequential fallback (the N≥192 auto winner); under
-        # vmap(solve) = the plain batched rollout — the defect machinery's
-        # cond→select lowering would otherwise run BOTH branches per
-        # instance and double the rollout work.
-        from ilqr_tpu.ops.pallas_batched import open_loop_init_smart
-
+        # sequential fallback; under vmap(solve) = the plain batched
+        # rollout — the defect machinery's cond→select lowering would
+        # otherwise run BOTH branches per instance.
         X0, cost0 = open_loop_init_smart(
-            system, x0, U_init,
-            config.defect_iters, config.defect_engine, config.defect_tol)
-    elif rollout_mode == "pallas":
-        # Batched solves under vmap route the initial rollout through the
-        # open-loop kernel too (the sequential chain vmaps into N dispatch-
-        # bound XLA scan steps otherwise); single-instance = plain rollout.
-        from ilqr_tpu.ops.pallas_batched import rollout_smart
-
-        X0, cost0 = rollout_smart(system, x0, U_init)
+            system, x0, U_init, config.defect_iters, config.defect_tol)
     else:
-        from ilqr_tpu.ops.pallas_batched import rollout_flagged
-
         X0, cost0 = rollout_flagged(system, x0, U_init)
     nan = jnp.full((config.maxiter,), jnp.nan, dtype=cost0.dtype)
 
@@ -431,8 +320,6 @@ def solve(
             return {**s, "status": jnp.asarray(CONVERGED)}
 
         def iterate(s):
-            from ilqr_tpu.ops.linearize import linearize_trajectory_smart
-
             exp = linearize_trajectory_smart(system, s["X"], s["U"])
             if config.ddp:
                 from ilqr_tpu.ops.linearize import dynamics_hessians
@@ -449,18 +336,7 @@ def solve(
             u_ff, K, dV, bp_ok = _backward(exp, s["U"], s["reg"], config,
                                            hess, noise)
 
-            if rollout_mode == "pallas":
-                from ilqr_tpu.ops.pallas_batched import (
-                    closed_loop_rollout_smart,
-                    linesearch_costs_smart,
-                )
-
-                costs = linesearch_costs_smart(
-                    system, x0, alphas, s["X"], s["U"], u_ff, K
-                )
-                certified = jnp.ones_like(costs, dtype=bool)
-                par_success = jnp.asarray(True)
-            elif rollout_mode in ("defect", "chunked"):
+            if rollout_mode in ("defect", "chunked"):
                 if rollout_mode == "chunked":
                     from ilqr_tpu.ops.chunked_rollout import (
                         chunked_rollout,
@@ -500,14 +376,12 @@ def solve(
                         return defect_rollout(
                             system, x0, alpha, s["X"], s["U"], u_ff, K, A_cl,
                             iters=config.defect_iters,
-                            engine=config.defect_engine,
                             exit_tol=exit_tol, u_limits=limits)
 
                     def multi_par(A_cl, exit_tol):
                         return linesearch_defect_rollouts(
                             system, x0, alphas, s["X"], s["U"], u_ff, K, exp,
                             iters=config.defect_iters,
-                            engine=config.defect_engine,
                             exit_tol=exit_tol, u_limits=limits)
 
                 n_alpha = alphas.shape[0]
@@ -520,10 +394,6 @@ def solve(
                 exit_tol = 1e-3 * cert_tol
 
                 def exact_ls(_):
-                    from ilqr_tpu.ops.pallas_batched import (
-                        linesearch_rollouts_smart,
-                    )
-
                     Xs, Us, cs = linesearch_rollouts_smart(
                         system, x0, alphas, s["X"], s["U"], u_ff, K,
                         u_limits=limits)
@@ -594,15 +464,10 @@ def solve(
                 # paid the exact fallback, later iterations go straight to
                 # the exact line search — a problem that left the contraction
                 # regime would otherwise pay phase1+phase2+fallback EVERY
-                # iteration (measured 4.5 s vs 3.6 s pure-scan on the
-                # 100k-step cartpole before this latch).
+                # iteration.
                 X_c, U_c, costs, certified, par_success = jax.lax.cond(
                     s["use_defect"], defect_ls, exact_ls, None)
             else:
-                from ilqr_tpu.ops.pallas_batched import (
-                    linesearch_rollouts_smart,
-                )
-
                 X_c, U_c, costs = linesearch_rollouts_smart(
                     system, x0, alphas, s["X"], s["U"], u_ff, K,
                     u_limits=config.limit_arrays(n_u, U_init.dtype),
@@ -617,13 +482,7 @@ def solve(
 
             def accepted(s):
                 k = s["k"]
-                if rollout_mode == "pallas":
-                    # Materialize only the accepted α's trajectory.
-                    X_new, U_new, _ = closed_loop_rollout_smart(
-                        system, x0, alphas[idx], s["X"], s["U"], u_ff, K
-                    )
-                else:
-                    X_new, U_new = X_c[idx], U_c[idx]
+                X_new, U_new = X_c[idx], U_c[idx]
                 new_cost = costs[idx]
                 reg = s["reg"] / config.reg_factor if config.adaptive_reg else s["reg"]
                 if config.adaptive_reg:

@@ -8,7 +8,7 @@ Riccati recursion for time-varying feedback gains, and apply
 ``u = u_ref + K (x − x_ref)`` at execution time with zero per-step
 optimization.
 
-TPU-native structure: gain synthesis reuses the trajectory-wide vmapped
+Structure: gain synthesis reuses the trajectory-wide vmapped
 linearization and the sequential/associative Riccati backward pass on a
 synthetic deviation-cost expansion, so it inherits every backend; execution
 is one `lax.scan` (or `closed_loop_rollout`).

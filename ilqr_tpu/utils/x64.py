@@ -1,6 +1,6 @@
 """Opt-in float64 oracle mode for parity gates (VERDICT r1 item 10).
 
-The framework runs f32 on TPU (the reference runs f64 on CPU by default —
+The framework runs f32 on the accelerator (the reference runs f64 on CPU by default —
 JAX's x64 flag off means the reference package actually ran f32 too, but the
 MATLAB side and the CasADi/IPOPT cross-checks are genuine f64).  Constrained-
 solver violation floors and Riccati association-order effects are therefore
@@ -9,7 +9,7 @@ claimed "realistic in f32" without a sharp oracle.  This module provides one:
     with enable_x64_oracle():
         sol64 = it.solve(build_system(jnp.float64), ...)
 
-re-runs the SAME algorithm at double precision (CPU or TPU-x64), so f32
+re-runs the SAME algorithm at double precision (on the CPU), so f32
 results can be gated against a trusted high-precision solution instead of
 against themselves.  Used by tests/test_smallmat.py (quadrotor oracle) and
 tests/test_x64_parity.py.

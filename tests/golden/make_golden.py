@@ -5,7 +5,7 @@ with an independent solver (SURVEY.md §4).  For the new framework the trusted
 oracle is the reference package itself, executed on CPU from
 /root/reference/python (imported, not copied).  This script records the
 converged (X, U, cost, iterations) for the three open-loop BASELINE.json
-configs; tests/test_parity.py asserts the TPU framework matches within
+configs; tests/test_parity.py asserts the framework matches within
 tolerance.
 
 Run manually:  python tests/golden/make_golden.py

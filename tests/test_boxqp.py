@@ -102,11 +102,11 @@ def test_limits_config_validation():
     with pytest.raises(ValueError, match="together"):
         it.IlqrConfig(u_min=-1.0)
     # limits now compose with the parallel backward (frozen-active-set
-    # hybrid, ops/limited_parallel.py) — pscan/pallas are accepted.
+    # hybrid, ops/limited_parallel.py) — pscan is accepted.
     it.IlqrConfig(u_min=-1.0, u_max=1.0, backward="pscan")
     # ...and with the clamped defect-correction rollouts (the defect
     # controls() map clips and the limited backward zeroes clamped K rows).
     it.IlqrConfig(u_min=-1.0, u_max=1.0, rollout="defect")
-    # The pallas rollout kernels do not clamp — still rejected.
+    # The removed pallas rollout engine is rejected with or without limits.
     with pytest.raises(ValueError, match="pallas"):
         it.IlqrConfig(u_min=-1.0, u_max=1.0, rollout="pallas")

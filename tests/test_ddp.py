@@ -100,7 +100,7 @@ def test_ddp_with_control_limits():
 def test_ddp_config_validation():
     # ddp composes with the parallel backward (frozen-value sweeps) …
     it.IlqrConfig(ddp=True, backward="pscan")
-    it.IlqrConfig(ddp=True, backward="pallas", ddp_sweeps=4)
+    it.IlqrConfig(ddp=True, backward="pscan", ddp_sweeps=4)
     # … and, since round 3, also combined with hard control limits (the
     # frozen-active-set limited pass folds the second-order terms at its
     # carried value trace — tests/test_limited_parallel.py).

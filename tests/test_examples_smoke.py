@@ -9,7 +9,7 @@ drivers ARE the workload layer, so bit-rot there is product breakage.
 Subprocess isolation (not in-process import) keeps each driver's XLA compile
 state out of the test worker — the same per-process program-count ceiling
 that shaped the xdist config (NOTES.md) — and faithfully exercises the
-`__main__` entry including `os._exit` teardown.
+`__main__` entry.
 """
 import os
 import subprocess

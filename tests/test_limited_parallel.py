@@ -36,7 +36,7 @@ def test_inactive_bounds_match_unconstrained():
     exp = linearize_trajectory(sys_, X, U)
     lo, hi = jnp.array([-1e6]), jnp.array([1e6])
     uff_p, K_p, _, ok = backward_pass_limited_parallel(
-        exp, U, lo, hi, 0.0, engine="xla")
+        exp, U, lo, hi, 0.0)
     uff_u, K_u, _, _ = backward_pass(exp, 0.0)
     assert bool(ok)
     assert jnp.allclose(uff_p, uff_u, atol=1e-4)
@@ -55,7 +55,7 @@ def test_saturated_direction_improves():
     lo, hi = jnp.array([-2.0]), jnp.array([2.0])
     alphas = jnp.asarray([0.5 ** i for i in range(10)])
     uff, K, _, ok = backward_pass_limited_parallel(
-        exp, U, lo, hi, 0.0, engine="xla")
+        exp, U, lo, hi, 0.0)
     assert bool(ok)
     assert bool(jnp.all(uff >= -2.0 - 1e-5) & jnp.all(uff <= 2.0 + 1e-5))
     _, _, costs = linesearch_rollouts(sys_, x0, alphas, X, U, uff, K,

@@ -156,10 +156,8 @@ def test_mpc_barrier_torque_limited_swingup():
 
 
 def test_mpc_parallel_inner_engines_match_sequential():
-    """The parallel-in-time inner chains (pscan backward + defect rollouts —
-    what `mpc._mpc_auto_config` selects on TPU) must reproduce the
-    sequential engines' closed loop (measured 0.32-0.59 ms/step vs 7.2-8.0
-    on v5e; here: CPU equivalence)."""
+    """The parallel-in-time inner chains (pscan backward + defect rollouts,
+    selected by name) must reproduce the sequential engines' closed loop."""
     import ilqr_tpu as it
     from ilqr_tpu.mpc import run_mpc
 
@@ -176,8 +174,7 @@ def test_mpc_parallel_inner_engines_match_sequential():
                                 init_rollout="scan", backward="scan"))
     par = run_mpc(s_s, s_p, x0, U0, 80,
                   it.IlqrConfig(maxiter=6, tol=1e-5, rollout="defect",
-                                init_rollout="defect", backward="pscan",
-                                defect_engine="xla"))
+                                init_rollout="defect", backward="pscan"))
     np.testing.assert_allclose(float(par.cost), float(seq.cost), rtol=1e-3)
     np.testing.assert_allclose(np.asarray(par.X[-1]), np.asarray(seq.X[-1]),
                                atol=1e-2)

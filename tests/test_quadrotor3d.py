@@ -68,7 +68,7 @@ def test_open_loop_repositioning_converges():
 
 
 def test_pscan_backward_matches_scan_nx12():
-    """The dimension-generic associative backward ('auto' on TPU for
+    """The dimension-generic associative backward ('pscan' for
     n_x > 12) agrees with the sequential recursion at n_x=12."""
     sys_ = _sys()
     N = 200

@@ -1,11 +1,6 @@
-"""Rotor-lag 3-D quadrotor (n_x = 16) — the workload that exercises the
-round-4 fused-backward cap lift (VERDICT r3 weak #6).
-
-The fused Pallas kernel itself is benchmarked on-chip (bench.py
-`backward_pass_nx16_*`; interpret-mode tracing of the n=16 kernel takes
->10 min on CPU — see NOTES.md), so these tests pin the CPU-checkable
-pieces: model physics, derivative surface, the n=16 element algebra via
-the XLA associative scan, and a converging solve.
+"""Rotor-lag 3-D quadrotor (n_x = 16): model physics, derivative surface,
+the n=16 element algebra via the XLA associative scan, and a converging
+solve.
 """
 import jax
 import jax.numpy as jnp

@@ -209,10 +209,8 @@ def test_mpc_ms_swings_up_under_model_mismatch():
 
 def test_mpc_ms_rti_single_iteration_quality():
     # MS-RTI: ONE GNMS iteration per MPC step with the parallel-in-time
-    # engines pinned the way `_mpc_auto_config` resolves them on TPU
-    # (pscan backward + XLA affine update) — the mode bench.py measures as
-    # mpc_step_latency_ms@ms_rti (0.188 ms/step on v5e vs 0.269 for
-    # single-shooting RTI).  Must reach the full-budget closed-loop quality.
+    # engines selected by name (pscan backward + XLA affine update).  Must
+    # reach the full-budget closed-loop quality.
     from ilqr_tpu.mpc import run_mpc, run_mpc_ms
 
     solver_sys = it.make_pendulum(

@@ -1,6 +1,6 @@
 """float64 oracle gates (VERDICT r1 item 10).
 
-The framework runs f32 on TPU; `utils.x64.enable_x64_oracle` re-runs the
+The framework runs f32 on the accelerator; `utils.x64.enable_x64_oracle` re-runs the
 same algorithms at double precision so f32 claims (constrained-solver
 violation floors, solve optima) are checked against a sharp oracle instead
 of against themselves.  Reference analogue: the MATLAB/CasADi-IPOPT f64
